@@ -1,9 +1,9 @@
-"""SUPER-Net TPU — a TPU-native variational-density-propagation (VDP)
-segmentation framework.
+"""SUPER-Net — a variational-density-propagation (VDP) segmentation
+framework in JAX.
 
 Re-implements the capabilities of
 GiuseppinaC/SUPER-Net-Bayesian-Image-Segmentation-with-Uncertainty-Propagation
-(reference mounted at /root/reference) as an idiomatic JAX/XLA/Pallas stack:
+as an idiomatic JAX/XLA stack:
 
 - ``ops``      — moment-propagation primitives (mean+variance through conv,
                  ReLU, max-pool, unpool, pad, crop/concat, softmax).
@@ -16,7 +16,7 @@ GiuseppinaC/SUPER-Net-Bayesian-Image-Segmentation-with-Uncertainty-Propagation
 - ``evaluate`` / ``evaluate3d`` — the noise ``testing`` protocol,
                  adversarial branch, and calibration reports (2-D slices /
                  whole volumes).
-- ``parallel`` — device-mesh data parallelism (shard_map + psum over ICI),
+- ``parallel`` — device-mesh data parallelism (shard_map + psum),
                  spatial (halo-exchange) partitioning incl. the volumetric
                  scan axis, multi-host bring-up.
 - ``attacks``  — FGSM / PGD adversarial evaluation (both model families).

@@ -15,7 +15,7 @@ Reference: ``create_adversarial_pattern`` (`Hippocampus.py:533-547`,
   (`Hippocampus.py:914-916` — np.ma masked_where + fill, here a jnp.where);
 - BraTS untargeted mode is a single FGSM step (`Brats.py:984-991`).
 
-TPU-native design: the whole PGD loop is one ``lax.fori_loop`` inside a
+Design: the whole PGD loop is one ``lax.fori_loop`` inside a
 single jit — the reference re-enters a ``tf.function`` per step from Python,
 paying a host round-trip per iteration.
 """

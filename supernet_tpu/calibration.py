@@ -307,7 +307,7 @@ def _plot_artifacts(out_dir: str, res: Dict[str, object]) -> List[str]:
 
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
-    except Exception:  # pragma: no cover - headless fallback
+    except ImportError:  # matplotlib is optional: no figures without it
         return []
     written = []
     fig, ax = plt.subplots(figsize=(5, 4))

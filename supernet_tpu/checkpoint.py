@@ -1,4 +1,4 @@
-"""Checkpointing: Orbax for native state + a Keras-H5 weight importer.
+"""Checkpointing: npz files for native state + a Keras-H5 weight importer.
 
 The reference checkpoints with Keras ``save_weights``/``load_weights`` into
 ``./{Dataset}/saved_models_SUPER_u-Net/epoch_{N}/vdp_UNET_model.weights.h5``
@@ -6,9 +6,9 @@ every epoch (`Hippocampus.py:474,549-555,665,743`; C37 in SURVEY.md §2.6),
 resuming via ``continue_training``/``saved_model_epochs``.
 
 Here:
-- native path: Orbax ``StandardCheckpointer`` on the full ``TrainState``
-  pytree (params + optimizer state + step), same ``epoch_{N}`` directory
-  scheme, ``latest_epoch``/resume helpers;
+- native path: the full ``TrainState`` pytree (params + optimizer state +
+  step) as one ``epoch_{N}/state.npz``, same ``epoch_{N}`` directory
+  scheme, ``latest_epoch``/resume helpers, a background-thread writer;
 - ``import_keras_h5`` reads the reference's H5 layout into our params dict
   so pretrained-parity evals can run. Keras names subclassed layers by class
   in creation order (``my_conv_input``, ``my_conv_intermediate``,
@@ -23,8 +23,10 @@ Here:
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import re
+import shutil
 from typing import Dict, List, Optional
 
 import jax
@@ -36,33 +38,65 @@ from supernet_tpu.models import layer_names
 Params = Dict[str, Dict[str, jax.Array]]
 
 
-# ------------------------------------------------------------------- orbax
+# ----------------------------------------------------------- train state
+
+STATE_FILE = "state.npz"
 
 
 def _epoch_dir(root: str, epoch: int) -> str:
     return os.path.join(os.path.abspath(root), f"epoch_{epoch}")
 
 
-def save_state(root: str, epoch: int, state) -> str:
-    """Save a TrainState pytree under ``root/epoch_{N}/state``."""
-    import orbax.checkpoint as ocp
+def _state_path(root: str, epoch: int) -> str:
+    return os.path.join(_epoch_dir(root, epoch), STATE_FILE)
 
-    path = os.path.join(_epoch_dir(root, epoch), "state")
-    with ocp.StandardCheckpointer() as ckptr:
-        ckptr.save(path, state, force=True)
+
+def _write_npz(path: str, state) -> None:
+    """One ``leaf_{i}`` array per pytree leaf, in ``tree_flatten`` order,
+    plus each leaf's key path for a readable mismatch error. Written to a
+    temporary name and renamed, so a reader never sees a partial file."""
+    leaves_kp, _ = jax.tree_util.tree_flatten_with_path(state)
+    arrays = {f"leaf_{i}": np.asarray(v) for i, (_, v) in enumerate(leaves_kp)}
+    arrays["paths"] = np.array(
+        [jax.tree_util.keystr(kp) for kp, _ in leaves_kp], dtype=str
+    )
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def save_state(root: str, epoch: int, state) -> str:
+    """Save a TrainState pytree (params + optimizer state + step) to
+    ``root/epoch_{N}/state.npz``."""
+    path = _state_path(root, epoch)
+    _write_npz(path, state)
     return path
 
 
 def restore_state(root: str, epoch: int, template):
     """Restore a TrainState saved by ``save_state`` or the async writer;
-    ``template`` is an abstract or concrete pytree of matching structure."""
-    import orbax.checkpoint as ocp
-
-    path = os.path.join(_epoch_dir(root, epoch), "state")
-    if not os.path.isdir(path):
-        path = os.path.join(_epoch_dir(root, epoch), "default")
-    with ocp.StandardCheckpointer() as ckptr:
-        return ckptr.restore(path, template)
+    ``template`` is an abstract or concrete pytree of matching structure
+    whose leaf shapes and dtypes the restored arrays take."""
+    path = _state_path(root, epoch)
+    leaves, treedef = jax.tree_util.tree_flatten(template)
+    with np.load(path) as f:
+        n = sum(1 for k in f.files if k.startswith("leaf_"))
+        if n != len(leaves):
+            raise ValueError(
+                f"{path}: {n} saved leaves, template has {len(leaves)}"
+            )
+        paths = f["paths"]
+        out = []
+        for i, t in enumerate(leaves):
+            a = f[f"leaf_{i}"]
+            if a.shape != tuple(t.shape):
+                raise ValueError(
+                    f"{path}: leaf {paths[i]} has shape {a.shape}, "
+                    f"template expects {tuple(t.shape)}"
+                )
+            out.append(jax.numpy.asarray(a, dtype=t.dtype))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def resolve_checkpoint(src: str):
@@ -78,20 +112,14 @@ def resolve_checkpoint(src: str):
 
 
 def latest_epoch(root: str) -> Optional[int]:
-    """Highest N with an ``epoch_{N}`` checkpoint under root, or None.
-
-    Accepts both layouts: ``epoch_{N}/state`` (save_state) and
-    ``epoch_{N}/default`` (AsyncCheckpointer / CheckpointManager).
-    """
+    """Highest N with a complete ``epoch_{N}/state.npz`` under root, or
+    None."""
     if not os.path.isdir(root):
         return None
     best = None
     for name in os.listdir(root):
         m = re.fullmatch(r"epoch_(\d+)", name)
-        if m and (
-            os.path.isdir(os.path.join(root, name, "state"))
-            or os.path.isdir(os.path.join(root, name, "default"))
-        ):
+        if m and os.path.isfile(os.path.join(root, name, STATE_FILE)):
             n = int(m.group(1))
             best = n if best is None or n > best else best
     return best
@@ -100,45 +128,50 @@ def latest_epoch(root: str) -> Optional[int]:
 class AsyncEpochCheckpointer:
     """Non-blocking per-epoch checkpointing (SURVEY.md §5: the reference
     blocks training on a synchronous Keras ``save_weights`` every epoch,
-    `Hippocampus.py:665`). Saves run on a background thread via Orbax's
-    AsyncCheckpointer while the next epoch trains; ``wait()`` drains.
+    `Hippocampus.py:665`). ``save`` takes a host copy of the state
+    (``jax.device_get``) and one background thread writes the epochs in
+    order while the next epoch trains; ``wait()`` drains and re-raises a
+    failed write.
 
-    Directory scheme matches the reference (``root/epoch_{N}``) so
-    ``latest_epoch`` / resume work across sync and async writers.
+    Same ``root/epoch_{N}/state.npz`` layout as ``save_state``, so
+    ``latest_epoch`` / ``restore_state`` work across both writers. With
+    ``keep`` set, only the newest ``keep`` epochs stay on disk.
     """
 
     def __init__(self, root: str, keep: Optional[int] = None):
-        import orbax.checkpoint as ocp
-
         self.root = os.path.abspath(root)
         self.keep = keep
-        self._ckptr = ocp.AsyncCheckpointer(ocp.StandardCheckpointHandler())
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._pending: List[concurrent.futures.Future] = []
         self._saved: List[int] = []
 
-    def save(self, epoch: int, state) -> None:
-        path = os.path.join(_epoch_dir(self.root, epoch), "default")
-        self._ckptr.save(path, state, force=True)
-        self._saved.append(epoch)
-        if self.keep is not None and len(self._saved) > self.keep:
-            import shutil
-
-            victim = self._saved.pop(0)
-            self._ckptr.wait_until_finished()
+    def _write(self, epoch: int, state, victim: Optional[int]) -> None:
+        _write_npz(_state_path(self.root, epoch), state)
+        if victim is not None:
             shutil.rmtree(_epoch_dir(self.root, victim), ignore_errors=True)
 
-    def restore(self, epoch: int, template):
-        self._ckptr.wait_until_finished()
-        path = os.path.join(_epoch_dir(self.root, epoch), "default")
-        import orbax.checkpoint as ocp
+    def save(self, epoch: int, state) -> None:
+        host = jax.device_get(state)
+        self._saved.append(epoch)
+        victim = None
+        if self.keep is not None and len(self._saved) > self.keep:
+            victim = self._saved.pop(0)
+        self._pending.append(self._pool.submit(self._write, epoch, host, victim))
 
-        with ocp.StandardCheckpointer() as c:
-            return c.restore(path, template)
+    def restore(self, epoch: int, template):
+        self.wait()
+        return restore_state(self.root, epoch, template)
 
     def wait(self) -> None:
-        self._ckptr.wait_until_finished()
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
 
     def close(self) -> None:
-        self._ckptr.close()
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 # ---------------------------------------------------------------- keras h5
@@ -246,8 +279,8 @@ def export_keras_h5(path: str, params: Params, cfg: ModelConfig) -> None:
 
 
 def save_params_npz(path: str, params: Params) -> None:
-    """Dependency-light flat dump (used by tests/bench; Orbax is the
-    production path)."""
+    """Flat params-only dump (the serving bundle's weights and the
+    ``--checkpoint x.npz`` input)."""
     flat = {
         f"{layer}/{w}": np.asarray(v)
         for layer, ws in params.items()

@@ -35,7 +35,7 @@ def _add_common(
     p.add_argument("--out-dir", default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint root (restores the latest Orbax "
+                   help="checkpoint root (restores the latest "
                         "epoch_{N}), a specific .../epoch_{N} dir, "
                         ".npz params, or Keras .h5 weights")
     p.add_argument("--data-parallel", action="store_true", help=dp_help)
@@ -73,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "vmap", "scan", "unroll", "sequential"],
                    help="auto (default): all K members train as ONE "
                         "compiled program — unrolled over the member axis "
-                        "single-device (measured fastest: ~1%% per-step "
-                        "tax vs sequential, one compile), vmap with "
+                        "single-device (one compile; on the H100 its step "
+                        "costs the same as K sequential ones), vmap with "
                         "--data-parallel (members shard over the "
                         "devices); vmap/scan/unroll force that lowering; "
                         "sequential: K separate full trainings (the "
@@ -151,7 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "sequential: K separate full trainings")
     t3.add_argument("--init-from-2d", metavar="CKPT", default=None,
                     help="transfer init: inflate a trained 2-D checkpoint "
-                         "(Orbax epoch dir / .npz / Keras .h5) of the SAME "
+                         "(epoch_{N} dir / .npz / Keras .h5) of the SAME "
                          "config into the 3-D model (I3D-style: mean "
                          "kernel tiled over depth / k, weight variance / "
                          "k; see models.inflate_params3d)")
@@ -386,7 +386,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(serving pads/chunks requests to it)")
     x.add_argument("--volumetric", action="store_true",
                    help="export the 3-D family's forward (cube in/out); "
-                        "--checkpoint must be a train3d Orbax dir or .npz")
+                        "--checkpoint must be a train3d checkpoint dir or .npz")
     _add_3d_shape(x)  # --cube-size / --base-kernels / --depth
     x.add_argument("--variance-scale", type=float, default=1.0,
                    help="bake a fitted post-hoc variance scale (cli "
@@ -401,8 +401,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser(
         "profile",
         help="exact-join device profile of the train step (per-op class "
-             "table joined against the executed executable's HLO; "
-             "docs/PERFORMANCE.md 'Round 5')")
+             "table joined against the executed executable's HLO; GPU only)")
     pr.add_argument("--config", default="hippocampus",
                     help="hippocampus | brats | lungs | unet3d "
                          "(unet3d = the volumetric family)")
@@ -410,11 +409,11 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--iters", type=int, default=20,
                     help="traced dispatches (each runs the K-step scan)")
     pr.add_argument("--by-layer", action="store_true",
-                    help="add per-layer MXU-conv attribution "
+                    help="add per-layer conv attribution "
                          "(jax.named_scope layer scopes)")
     pr.add_argument("--out-dir", default=None,
                     help="trace + exact_join.json destination "
-                         "(default /tmp/ej_<config>_<batch>)")
+                         "(default runs/profile_<config>_<batch>)")
     return ap
 
 
@@ -620,7 +619,7 @@ def _load_maybe_ensemble(load_one, exp, args, cmd_ok=True):
 
 
 def _load_params3d(exp, args, src=_UNSET):
-    """Volumetric params: random init, .npz, or the latest Orbax
+    """Volumetric params: random init, .npz, or the latest
     ``epoch_{N}`` checkpoint under --checkpoint (what train3d writes)."""
     import jax
 
@@ -636,7 +635,7 @@ def _load_params3d(exp, args, src=_UNSET):
     if src.endswith(".h5"):
         raise SystemExit(
             "Keras .h5 import is 2-D-only; the 3-D family restores from "
-            "Orbax epoch_{N} dirs or .npz params"
+            "epoch_{N} checkpoint dirs or .npz params"
         )
     if src.endswith(".npz"):
         return ckpt.load_params_npz(src)
@@ -650,7 +649,7 @@ def _load_params3d(exp, args, src=_UNSET):
 
 def _load_params(exp, args, src=_UNSET):
     """2-D params from ``args.checkpoint`` (or an explicit ``src``):
-    random init, Keras .h5, .npz, or the latest Orbax epoch dir."""
+    random init, Keras .h5, .npz, or the latest epoch_{N} dir."""
     import jax
 
     from supernet_tpu import checkpoint as ckpt
@@ -768,6 +767,9 @@ def _run_study(exp, args) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from supernet_tpu.utils import use_compile_cache
+
+    use_compile_cache()
     # process-level kernel knobs (SUPERNET_PRECISION / SUPERNET_BACKEND /
     # SUPERNET_CONV_FOLD / SUPERNET_ACT_DTYPE)
     from supernet_tpu.ops import apply_env_overrides
@@ -777,15 +779,15 @@ def main(argv=None) -> int:
     if args.cmd == "bench":
         import bench
 
-        bench.main()
-        return 0
+        return bench.main()
 
     if args.cmd == "profile":
         import os
 
         from supernet_tpu.hlo_profile import run as profile_run
 
-        out_dir = args.out_dir or f"/tmp/ej_{args.config}_{args.batch}"
+        out_dir = args.out_dir or os.path.join(
+            "runs", f"profile_{args.config}_{args.batch}")
         os.makedirs(out_dir, exist_ok=True)
         profile_run(args.config, args.batch, out_dir,
                     n_iters=args.iters, by_layer=args.by_layer)
@@ -1180,7 +1182,7 @@ def main(argv=None) -> int:
 
                 # member-parallel serving: largest device count that
                 # divides K runs K/n members per device, mixture means
-                # all-reduce over ICI
+                # all-reduce across the devices
                 n = jax.device_count()
                 while n > 1 and len(members) % n != 0:
                     n -= 1
@@ -1471,7 +1473,7 @@ def main(argv=None) -> int:
                 # ONE compiled program for all K members — the training
                 # twin of serving.EnsembleSession (VERDICT r3 #4); the
                 # member-axis lowering (unroll/scan/vmap) follows
-                # EnsembleTrainer's measured default unless forced
+                # EnsembleTrainer's default unless forced
                 from supernet_tpu.ensemble import EnsembleTrainer
 
                 if args.steps_per_dispatch > 1:

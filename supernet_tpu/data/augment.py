@@ -4,7 +4,7 @@ The reference trains Hippocampus from a *pre-augmented* pickle
 (`train_test_augmented2.pkl`, `Hippocampus.py:479-481`) — the augmentation
 itself happened in an offline pipeline that is absent from the snapshot.
 This module moves it on-device: pure jittable functions applied INSIDE the
-jitted train step, so augmentation rides the TPU (VPU element-wise ops +
+jitted train step, so augmentation runs on the device (element-wise ops +
 static-shape transposes) instead of a host preprocessing pass, and composes
 with the .npy-shard streaming loader to finish the tf.data-free input
 pipeline the blueprint's north star names (BASELINE.json).

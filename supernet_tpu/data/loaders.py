@@ -1,7 +1,7 @@
 """Host-side data pipeline: pickle readers, shuffling batchers, and a
 double-buffered background prefetcher feeding sharded device arrays.
 
-Replaces the reference's ``tf.data`` pipelines with a TPU-idiomatic feed:
+Replaces the reference's ``tf.data`` pipelines with a device-friendly feed:
 
 - Hippocampus: one pickle ``(x_train, y_train, x_test, y_test)``; the last
   test sample is dropped (`Hippocampus.py:479-484`); shuffle/batch/prefetch

@@ -5,7 +5,7 @@ compiles, K epoch loops (`cli.py`), while the serving side already vmapped
 the member axis into one program (`serving.EnsembleSession`). This module
 is the training twin: the K member states are stacked along a leading axis
 and every update is ONE vmapped XLA program (`train.make_ensemble_train_step`),
-so the model compiles once and the members' convs batch together on the MXU.
+so the model compiles once and the members' convs batch together.
 
 Semantics match the sequential path exactly (tested in
 tests/test_ensemble_train.py):
@@ -51,22 +51,19 @@ from supernet_tpu.train import (
 )
 from supernet_tpu.trainer import _prep_batch
 
-# Measured on the TPU v5e (round 5 A/B + bench captures,
-# docs/PERFORMANCE.md "Ensemble member lowering"): per-member step K=4 @
-# parity batch — one-program UNROLL 14.43-15.42 ms vs sequential
-# 14.20-14.27 ms across captures (a 1-9% per-step tax band; scan
-# measured 3.6-15% across the same captures) — against ~35 s saved per
-# avoided full-model jit compile (the K=4 unrolled program compiled in
-# 42.5 s vs scan's 108.5 s vs ~4x35 s sequential). The default ratio
-# sits mid-band; override per deployment via the
+# Measured by chip_smoke.py's compile phase on one NVIDIA H100 80GB HBM3
+# (power limit 400 W), library defaults (f32, precision "highest"),
+# Hippocampus at batch 20: one member's train step 9.121 ms and its cold
+# compile 23.0 s; the K=4 unrolled program steps in 36.363 ms = 0.997 x
+# four sequential member steps (no per-step tax) and compiles in 56.1 s.
+# The 3-D family (64^3 cubes, batch 4) steps in 224.4 ms. The ratio of the
+# 3-D one-program step is assumed equal to the 2-D one (same lowering
+# structure). Override per deployment via the
 # SUPERNET_ENSEMBLE_{COMPILE_S,STEP_S,STEP_RATIO} env knobs.
-ONE_PROGRAM_STEP_RATIO = 1.05
-SEQUENTIAL_STEP_S = 0.014272
-# 3-D family: 32.0 vols/s at the parity batch of 4 (bench_last_good.json
-# unet3d) -> 125 ms/step; the scan-vs-sequential ratio is assumed equal
-# to the measured 2-D one (same lowering structure)
-SEQUENTIAL_STEP3D_S = 0.125
-COMPILE_S = 35.0
+ONE_PROGRAM_STEP_RATIO = 0.997
+SEQUENTIAL_STEP_S = 0.009121
+SEQUENTIAL_STEP3D_S = 0.2244
+COMPILE_S = 23.0
 
 
 def choose_ensemble_mode(
@@ -79,9 +76,9 @@ def choose_ensemble_mode(
 ):
     """Pick the wall-clock-winning lowering for ``--ensemble-mode auto``.
 
-    Round 4 always chose one-program, which pays a measured ~15% per-step
-    tax forever while saving only (K-1) jit compiles once — a long run
-    loses (VERDICT r4 #5). The crossover, with per-member step time ``t``,
+    One-program saves (K-1) jit compiles once but may pay a per-step tax
+    forever, in which case a long run loses. The crossover, with
+    per-member step time ``t``,
     per-step ratio ``r`` and compile cost ``c``:
 
         sequential:   K·c + K·total_steps·t
@@ -140,8 +137,7 @@ class EnsembleTrainer3D:
     --checkpoint a,b,c` and `EnsembleSession` consume.
 
     ``member_mode``: unroll (single-device default) / scan / vmap
-    (required on a member-axis ``mesh``) — same measured trade-off as 2-D
-    (docs/PERFORMANCE.md "ensemble member lowering")."""
+    (required on a member-axis ``mesh``) — the same trade-off as 2-D."""
 
     def __init__(
         self,
@@ -478,8 +474,8 @@ class EnsembleTrainer:
         # member-axis lowering: scan (single-device default — the member
         # body lowers like the plain single-model step, full per-step rate)
         # vs vmap (required on a mesh: members run device-parallel).
-        # SUPERNET_ENSEMBLE_MODE overrides; measured A/B in bench.py
-        # ensemble_train + docs/PERFORMANCE.md "Ensemble training".
+        # SUPERNET_ENSEMBLE_MODE overrides; bench.py ensemble_train
+        # measures the lowerings against each other.
         if member_mode is None:
             member_mode = os.environ.get(
                 "SUPERNET_ENSEMBLE_MODE", "vmap" if mesh is not None else "unroll"

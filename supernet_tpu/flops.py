@@ -1,7 +1,7 @@
 """Analytic FLOP accounting for the VDP U-Net — holds throughput numbers to
 the hardware (MFU) instead of free-floating images/sec.
 
-Counts the MXU (matmul/conv) FLOPs of the moment primitives in
+Counts the matmul/conv FLOPs of the moment primitives in
 ``supernet_tpu.ops.moments`` per layer, using the exact geometry chain
 recorded by ``models.unet.forward``'s shape tap (the same chain pinned by
 tests/test_geometry.py against `Hippocampus.py:375-418` / `Brats.py:379-455`).
@@ -31,62 +31,39 @@ import jax.numpy as jnp
 
 from supernet_tpu.configs import ModelConfig
 
-# bf16 peak TFLOP/s per chip by device_kind substring (public spec sheets).
-_PEAK_BF16_TFLOPS = (
-    ("v6", 918.0),  # Trillium
-    ("v5p", 459.0),
-    ("v5e", 197.0),  # v5 litepod
-    ("v5", 197.0),
-    ("v4", 275.0),
-    ("v3", 123.0),
-    ("v2", 45.0),
-)
+# Published peaks per device, keyed by the exact ``device_kind`` JAX
+# reports. NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16 on the tensor
+# cores, 3.35 TB/s HBM3, both at the full 700 W power limit (a card set
+# below it cannot hold its top clock under load, so report its
+# ``power.limit`` beside any share of these peaks).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"bf16_tflops": 989.0, "hbm_gbps": 3350.0},
+}
 
-# peak HBM bandwidth GB/s per chip (public spec sheets) — the other roofline
-# axis: a step is bandwidth-bound when min_hbm_bytes / peak_BW ~= step time.
-_PEAK_HBM_GBPS = (
-    ("v6", 1640.0),  # Trillium
-    ("v5p", 2765.0),
-    ("v5e", 819.0),
-    ("v5", 819.0),
-    ("v4", 1228.0),
-    ("v3", 900.0),
-    ("v2", 700.0),
-)
+
+def _peak(device, key: str) -> float:
+    if device is None:
+        device = jax.devices()[0]
+    kind = getattr(device, "device_kind", "")
+    try:
+        return PEAKS[kind][key]
+    except KeyError:
+        raise KeyError(
+            f"no published peak for device_kind {kind!r}; known: "
+            f"{sorted(PEAKS)}"
+        ) from None
 
 
 def peak_hbm_gbps(device=None) -> float:
-    """Peak HBM GB/s of ``device`` (default: first visible device); 0.0 when
-    unknown. Override with SUPERNET_TPU_PEAK_HBM_GBPS."""
-    import os
-
-    env = os.environ.get("SUPERNET_TPU_PEAK_HBM_GBPS")
-    if env:
-        return float(env)
-    if device is None:
-        device = jax.devices()[0]
-    kind = getattr(device, "device_kind", "").lower()
-    for key, gbps in _PEAK_HBM_GBPS:
-        if key in kind.replace(" ", ""):
-            return gbps
-    return 0.0
+    """Peak HBM GB/s of ``device`` (default: first visible device). Raises
+    KeyError for a device that is not in ``PEAKS``."""
+    return _peak(device, "hbm_gbps")
 
 
 def peak_tflops(device=None) -> float:
-    """bf16 peak TFLOP/s of ``device`` (default: first visible device); 0.0
-    when unknown (non-TPU hosts) so MFU reads as unavailable, never wrong."""
-    import os
-
-    env = os.environ.get("SUPERNET_TPU_PEAK_TFLOPS")
-    if env:
-        return float(env)
-    if device is None:
-        device = jax.devices()[0]
-    kind = getattr(device, "device_kind", "").lower()
-    for key, tf in _PEAK_BF16_TFLOPS:
-        if key in kind.replace(" ", ""):
-            return tf
-    return 0.0
+    """Dense bf16 peak TFLOP/s of ``device`` (default: first visible
+    device). Raises KeyError for a device that is not in ``PEAKS``."""
+    return _peak(device, "bf16_tflops")
 
 
 def _conv_shapes(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -116,7 +93,7 @@ def _conv_shapes(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def forward_flops_per_layer(cfg: ModelConfig) -> Dict[str, float]:
-    """MXU FLOPs of one forward pass per conv layer, batch size 1."""
+    """Conv FLOPs of one forward pass per conv layer, batch size 1."""
     from supernet_tpu.models import layer_names
 
     shapes = dict(_conv_shapes(cfg))
@@ -134,7 +111,7 @@ def forward_flops_per_layer(cfg: ModelConfig) -> Dict[str, float]:
 
 
 def forward_flops(cfg: ModelConfig, batch: int = 1) -> float:
-    """Total MXU FLOPs of one forward pass at ``batch``."""
+    """Total conv FLOPs of one forward pass at ``batch``."""
     return batch * sum(forward_flops_per_layer(cfg).values())
 
 
@@ -173,7 +150,7 @@ def _conv_shapes3d(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def forward_flops3d(cfg: ModelConfig, batch: int = 1) -> float:
-    """MXU FLOPs of one volumetric forward at ``batch`` — the 2-D counting
+    """Conv FLOPs of one volumetric forward at ``batch`` — the 2-D counting
     one rank up (k^2 -> k^3, HW -> DHW): mu conv + sigma convs per
     `ops.moments3d.vconv3d`; the fused lhs-dilated unpool-conv sees exactly
     one nonzero tap per output voxel, so it costs 4*cin*cout per voxel
@@ -202,11 +179,9 @@ def train_step_flops3d(cfg: ModelConfig, batch: int) -> float:
 
 
 def mfu(flops_per_second: float, device=None) -> float:
-    """Model FLOP utilization vs the chip's bf16 peak; 0.0 if peak unknown."""
-    peak = peak_tflops(device)
-    if peak <= 0:
-        return 0.0
-    return flops_per_second / (peak * 1e12)
+    """Model FLOP utilization vs the device's bf16 peak (raises for a
+    device without a published peak)."""
+    return flops_per_second / (peak_tflops(device) * 1e12)
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +302,6 @@ def train_step_min_bytes3d(
 def hbm_utilization(
     bytes_per_second: float, device=None
 ) -> float:
-    """Achieved HBM bandwidth vs the chip's peak; 0.0 if peak unknown."""
-    peak = peak_hbm_gbps(device)
-    if peak <= 0:
-        return 0.0
-    return bytes_per_second / (peak * 1e9)
+    """Achieved HBM bandwidth vs the device's peak (raises for a device
+    without a published peak)."""
+    return bytes_per_second / (peak_hbm_gbps(device) * 1e9)

@@ -1,29 +1,28 @@
 """Exact-join per-op profiling: trace a train step and attribute every
 device event against the HLO text of the SAME compiled executable.
 
-Why this exists (VERDICT r4 weak #1): bucketing trace events by name alone
-("fusion.N" -> elementwise) misattributes MXU weight-grad convolutions
-that XLA wraps in fusions — it flipped the 3-D story from "VPU-bound" to
-"66% MXU convs" when round 4 joined the events against
-``step.lower(...).compile().as_text()``. This module is that methodology,
-shipped as a product surface: the round-3 2-D conclusions ("the step is
-VPU-bound") came from the name-only scheme and were retracted after this
-re-examined them (docs/PERFORMANCE.md "Round 5").
+Bucketing trace events by name alone ("fusion.N" -> elementwise)
+misattributes convolutions that XLA wraps in fusions or hands to cuDNN
+as custom-calls, so every GPU kernel event is joined, through its
+``hlo_op`` / ``hlo_module`` trace stats, to its instruction in
+``step.lower(...).compile().as_text()`` and classified from there.
 
-Usage (on the TPU host; ``tools/exact_join.py`` is a compat wrapper):
+Usage (on the GPU; ``tools/exact_join.py`` is a compat wrapper):
 
     python -m supernet_tpu.cli profile --config hippocampus --batch 20
     python -m supernet_tpu.cli profile --config unet3d --batch 16 --by-layer
 
-Prints one class table (ms/step, %) with every trace event joined to its
-compiled-module instruction; ``--by-layer`` adds per-layer MXU-conv
-attribution via the models' ``jax.named_scope`` layer scopes; unjoined
-time is reported, not silently folded into a class. The JSON twin of the
-tables is written to ``<out_dir>/exact_join.json``.
+Prints one class table (ms/step, %) with every kernel event joined to its
+compiled-module instruction, plus the device's busy time (the union of its
+kernel intervals); ``--by-layer`` adds per-layer conv attribution via the
+models' ``jax.named_scope`` layer scopes; unjoined time is reported, not
+silently folded into a class. The JSON twin of the tables is written to
+``<out_dir>/exact_join.json``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -43,6 +42,21 @@ _OPCODE_RE = re.compile(r"(?:^|[\s)])([a-z][a-z0-9\-]*)\(")
 _CALLS_RE = re.compile(r"calls=%?([\w.\-]+)")
 _METADATA_RE = re.compile(r'metadata=\{[^}]*op_name="([^"]*)"')
 _COMP_RE = re.compile(r"^(?:ENTRY\s+)?%?([\w.\-]+)\s*\(")
+_TARGET_RE = re.compile(r'custom_call_target="([^"]*)"')
+_MODULE_RE = re.compile(r"^HloModule\s+([\w.\-]+)")
+
+
+def _custom_call_opcode(line: str) -> str:
+    """The GPU compiler lowers convolutions to cuDNN and some matmuls to
+    cuBLAS as custom-calls; name them by the operation they run so the
+    classes below do not depend on the backend's lowering."""
+    m = _TARGET_RE.search(line)
+    target = m.group(1) if m else ""
+    if target.startswith("__cudnn$conv"):
+        return "convolution"
+    if "gemm" in target or "matmul" in target.lower():
+        return "dot"
+    return "custom-call"
 
 
 def parse_hlo(text: str):
@@ -78,6 +92,8 @@ def parse_hlo(text: str):
         if not om:
             continue
         opcode = om.group(1)
+        if opcode == "custom-call":
+            opcode = _custom_call_opcode(line)
         meta = _METADATA_RE.search(line)
         calls = _CALLS_RE.search(line) if opcode == "fusion" else None
         cur.append(
@@ -120,7 +136,7 @@ def layer_of(meta: str, inner) -> str:
 
 
 def classify(opcode: str, meta: str, inner) -> str:
-    """One class per instruction, MXU work first. Backward convs are
+    """One class per instruction, matmul work first. Backward convs are
     recognized by the jax AD path markers in the metadata op_name."""
     ops = [opcode] + [op for op, _ in inner]
     metas = [meta] + [mt for _, mt in inner]
@@ -136,12 +152,12 @@ def classify(opcode: str, meta: str, inner) -> str:
         bwd = any(is_bwd(mt) for mt in conv_metas)
         fwd = any(not is_bwd(mt) for mt in conv_metas)
         if bwd and not fwd:
-            return "conv.bwd (MXU)"
+            return "conv.bwd"
         if fwd and not bwd:
-            return "conv.fwd (MXU)"
-        return "conv.mixed (MXU)"
+            return "conv.fwd"
+        return "conv.mixed"
     if "dot" in ops:
-        return "dot (MXU)"
+        return "dot"
     if "custom-call" in ops:
         return "custom-call"
     if "reduce-window" in ops or "select-and-scatter" in ops:
@@ -152,19 +168,18 @@ def classify(opcode: str, meta: str, inner) -> str:
                   "collective-permute") for op in ops):
         return "collective"
     if "reduce" in ops:
-        return "reduce (VPU)"
+        return "reduce"
     if opcode in ("copy-start", "copy-done", "slice-start", "slice-done",
                   "dynamic-slice-start", "dynamic-slice-done",
                   "dynamic-update-slice-start", "dynamic-update-slice-done"):
-        # memory-space-assignment async HBM<->VMEM prefetch/writeback;
-        # overlaps compute, so its ms/step is DMA occupancy, not critical
-        # path
-        return "async copy (DMA)"
+        # asynchronous copies overlap compute, so their ms/step is copy
+        # occupancy, not critical path
+        return "async copy"
     if opcode in ("copy", "transpose", "bitcast", "reshape"):
         return "layout/copy"
     if opcode in ("while", "conditional", "call"):
         return "control"
-    return "elementwise (VPU)"
+    return "elementwise"
 
 
 # --------------------------------------------------------------------------
@@ -248,72 +263,59 @@ def build_step(model: str, batch: int):
     return step, state, x, y, k_steps
 
 
-def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,
-        by_layer: bool = False):
-    import jax
+def module_name(hlo_text: str) -> str:
+    """``jit_step`` from the ``HloModule jit_step, ...`` header."""
+    m = _MODULE_RE.match(hlo_text.lstrip())
+    return m.group(1) if m else ""
 
-    from supernet_tpu.profiling import trace
 
-    step, state, x, y, k_steps = build_step(model, batch)
-    # Execute the SAME object whose HLO we join against: calling
-    # ``step(...)`` and separately ``step.lower(...).compile()`` yields two
-    # executables whose instruction NUMBERING differs (donation flags,
-    # measured: 100% of events unmatched on hippocampus@20) — so lower
-    # once, take the text, and run the compiled object itself.
-    compiled = step.lower(state, x, y).compile()
-    hlo = compiled.as_text()
-    table = parse_hlo(hlo)
-    # warmup (first call of this executable)
-    state, metrics = compiled(state, x, y)
-    float(np.min(np.asarray(metrics.loss)))
+def _union_ps(intervals) -> int:
+    """Total length of the union of [start, end) intervals."""
+    busy, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
 
-    import time
 
-    t0 = time.perf_counter()
-    with trace(trace_dir):
-        for _ in range(n_iters):
-            state, metrics = compiled(state, x, y)
-        float(np.min(np.asarray(metrics.loss)))
-    wall_ms_step = (time.perf_counter() - t0) * 1e3 / (n_iters * k_steps)
+def join_events(space, table, module: str, by_layer: bool = False):
+    """Join every kernel event of the GPU device planes of a parsed trace
+    (``xplane.parse_xspace``) to its instruction in ``table``
+    (``parse_hlo``) through the event's ``hlo_op`` stat; only events whose
+    ``hlo_module`` is ``module`` count. Returns a dict of per-class and,
+    with ``by_layer``, per-(layer, class) ``[ps, events]``, the unmatched
+    ``[ps, events]`` per name stem, the number of joined events and the
+    device busy time (union of all kernel intervals, per plane, summed).
 
-    from supernet_tpu.xplane import parse_xspace
-    import collections
-    import glob
+    Raises ValueError when no event joined: a trace without GPU device
+    planes, or one whose kernels belong to another program."""
+    from supernet_tpu.xplane import is_gpu_device_plane
 
-    pbs = sorted(glob.glob(os.path.join(
-        trace_dir, "**", "*.xplane.pb"), recursive=True),
-        key=os.path.getmtime)
-    if not pbs:
-        raise FileNotFoundError(f"no xplane.pb under {trace_dir}")
-    space = parse_xspace(pbs[-1])
     agg = collections.defaultdict(lambda: [0, 0])
     lagg = collections.defaultdict(lambda: [0, 0])
     unmatched = collections.defaultdict(lambda: [0, 0])
-    device_steps_ms = None
+    busy_ps, joined = 0, 0
     for pname, lines in space.items():
-        if "TPU" not in pname and "/device" not in pname.lower():
+        if not is_gpu_device_plane(pname):
             continue
-        for lname, evs in lines.items():
-            if lname == "Steps" and evs:
-                device_steps_ms = (
-                    sum(e.duration_ps for e in evs) / 1e9 / (len(evs) * k_steps)
-                )
-            # EXACT match: "XLA Ops" as a substring also matches the
-            # "Async XLA Ops" line, whose events span start->done of async
-            # copies and double-count DMA occupancy (measured: 2,283 ms vs
-            # 1,107 ms of sync-line time on hippocampus@20).
-            if lname != "XLA Ops":
-                continue
+        spans = []
+        for evs in lines.values():
             for ev in evs:
-                # device trace names can be the full HLO line
-                # ("%fusion.3 = bf16[...] fusion(...)"); the instruction
-                # name is the token before " = "
-                name = ev.name.split(" = ")[0].strip().lstrip("%")
+                if ev.stats.get("hlo_module") != module:
+                    continue
+                spans.append((ev.start_ps, ev.start_ps + ev.duration_ps))
+                name = ev.stats.get("hlo_op", "")
                 hit = table.get(name)
                 if hit is None:
-                    unmatched[name.split(".")[0]][0] += ev.duration_ps
-                    unmatched[name.split(".")[0]][1] += 1
+                    stem = name.split(".")[0] or ev.name.split("(")[0]
+                    unmatched[stem][0] += ev.duration_ps
+                    unmatched[stem][1] += 1
                     continue
+                joined += 1
                 cls = classify(*hit)
                 agg[cls][0] += ev.duration_ps
                 agg[cls][1] += 1
@@ -321,10 +323,48 @@ def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,
                     lay = layer_of(hit[1], hit[2])
                     lagg[(lay, cls)][0] += ev.duration_ps
                     lagg[(lay, cls)][1] += 1
-    if not agg and not unmatched:
-        print("note: no device-plane 'XLA Ops' events in the trace — the "
-              "exact-join profile needs a TPU device (CPU traces carry "
-              "no per-op line); tables below will be empty")
+        busy_ps += _union_ps(spans)
+    if not joined:
+        raise ValueError(
+            f"no GPU kernel event of module {module!r} joined to the HLO "
+            f"(device planes: "
+            f"{[p for p in space if is_gpu_device_plane(p)]})"
+        )
+    return {"classes": agg, "layers": lagg, "unmatched": unmatched,
+            "joined": joined, "busy_ps": busy_ps}
+
+
+def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,
+        by_layer: bool = False):
+    import jax
+
+    from supernet_tpu.profiling import trace
+    from supernet_tpu.xplane import newest_xplane, parse_xspace
+
+    step, state, x, y, k_steps = build_step(model, batch)
+    # Execute the SAME object whose HLO we join against: calling
+    # ``step(...)`` and separately ``step.lower(...).compile()`` yields two
+    # executables whose instruction numbering can differ (donation
+    # flags) — so lower once, take the text, and run the compiled object.
+    compiled = step.lower(state, x, y).compile()
+    hlo = compiled.as_text()
+    table = parse_hlo(hlo)
+    # warmup (first call of this executable)
+    state, metrics = compiled(state, x, y)
+    jax.block_until_ready(metrics)
+
+    import time
+
+    t0 = time.perf_counter()
+    with trace(trace_dir):
+        for _ in range(n_iters):
+            state, metrics = compiled(state, x, y)
+        jax.block_until_ready(metrics)
+    wall_ms_step = (time.perf_counter() - t0) * 1e3 / (n_iters * k_steps)
+
+    j = join_events(parse_xspace(newest_xplane(trace_dir)), table,
+                    module_name(hlo), by_layer)
+    agg, lagg, unmatched = j["classes"], j["layers"], j["unmatched"]
     # "control" (while/call wrappers) spans its own body — counting it
     # would double every op inside the scan loop; report it separately.
     control_ps = agg.pop("control", [0, 0])[0]
@@ -332,11 +372,12 @@ def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,
         ps for ps, _ in unmatched.values()
     )
     steps = n_iters * k_steps
+    busy_ms = j["busy_ps"] / 1e9 / steps
     print(f"\n== {model} batch {batch} (K={k_steps} scan, {n_iters} "
-          f"dispatches = {steps} steps) ==")
-    dev = (f"{device_steps_ms:.3f}" if device_steps_ms is not None else "?")
-    print(f"device step (Steps line): {dev} ms/step | wall (incl. trace "
-          f"setup): {wall_ms_step:.3f} | control-op span "
+          f"dispatches = {steps} steps, {j['joined']} kernel events "
+          f"joined) ==")
+    print(f"device busy: {busy_ms:.3f} ms/step | wall (incl. trace "
+          f"overhead): {wall_ms_step:.3f} | control-op span "
           f"{control_ps / 1e9 / steps:.3f}")
     print(f"{'class':28} {'ms/step':>9} {'events':>8} {'%':>6}")
     rows = []
@@ -359,10 +400,10 @@ def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,
     if by_layer and lagg:
         per_layer = collections.defaultdict(lambda: [0, 0])
         for (lay, cls), (ps, n) in lagg.items():
-            if "(MXU)" in cls or by_layer == "all":
+            if cls.startswith("conv") or cls == "dot" or by_layer == "all":
                 per_layer[lay][0] += ps
                 per_layer[lay][1] += n
-        print(f"\n-- per-layer MXU-conv time (named_scope attribution) --")
+        print("\n-- per-layer conv time (named_scope attribution) --")
         print(f"{'layer':18} {'ms/step':>9} {'events':>8} {'% of step':>9}")
         for lay, (ps, n) in sorted(per_layer.items(), key=lambda kv: -kv[1][0]):
             ms = ps / 1e9 / steps
@@ -373,15 +414,15 @@ def run(model: str, batch: int, trace_dir: str, n_iters: int = 20,
     out = {
         "model": model, "batch": batch, "k_steps": k_steps,
         "n_iters": n_iters, "wall_ms_per_step": round(wall_ms_step, 4),
-        "device_steps_ms_per_step": (
-            round(device_steps_ms, 4) if device_steps_ms is not None else None),
+        "device_busy_ms_per_step": round(busy_ms, 4),
+        "joined_events": j["joined"],
         "control_ms_per_step": round(control_ps / 1e9 / steps, 4),
         "classes": rows,
         "unmatched_ms_per_step": round(un_ps / 1e9 / steps, 4),
         "total_ms_per_step": round(total / 1e9 / steps, 4),
     }
     if layer_rows:
-        out["layers_mxu"] = layer_rows
+        out["layers_conv"] = layer_rows
     with open(os.path.join(trace_dir, "exact_join.json"), "w") as f:
         json.dump(out, f, indent=1)
     return out
@@ -395,7 +436,8 @@ def main(raw_args=None) -> int:
     argv = [a for a in raw if a != "--by-layer"]
     model = argv[0] if len(argv) > 0 else "hippocampus"
     batch = int(argv[1]) if len(argv) > 1 else 20
-    trace_dir = argv[2] if len(argv) > 2 else f"/tmp/ej_{model}_{batch}"
+    trace_dir = (argv[2] if len(argv) > 2
+                 else os.path.join("runs", f"profile_{model}_{batch}"))
     os.makedirs(trace_dir, exist_ok=True)
     run(model, batch, trace_dir, by_layer=by_layer)
     return 0

@@ -18,8 +18,7 @@ Block choreography (rigid in the reference, `Hippocampus.py:373-421`):
                     conv3 -> relu -> pad(2,2) -> conv3 -> relu
   head:             conv1x1 -> vsoftmax  (flattened [B, H*W, C] outputs)
 
-Here conv+relu pairs are fused (pallas backend fuses them into one kernel)
-and unpool+conv2 collapses to four parity 1x1 convs (vunpool_conv2) —
+Here conv+relu pairs go through ``vconv_relu`` and unpool+conv2 collapses to four parity 1x1 convs (vunpool_conv2) —
 numerically identical to the reference choreography, proven in tests.
 """
 
@@ -308,8 +307,8 @@ def forward_sampled(
     def conv(name: str, h: Array) -> Array:
         from supernet_tpu.ops.moments import get_mxu_precision
 
-        # same MXU precision as the propagated path, so MC-vs-VDP
-        # comparisons on TPU measure the method, not the multiply mode
+        # same matmul precision as the propagated path, so MC-vs-VDP
+        # comparisons measure the method, not the multiply mode
         return lax.conv_general_dilated(
             h, weights[name], (1, 1), "VALID",
             dimension_numbers=("NHWC", "HWIO", "NHWC"),

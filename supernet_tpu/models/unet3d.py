@@ -228,7 +228,7 @@ def forward_sampled3d(
     def conv(name: str, h: Array) -> Array:
         from supernet_tpu.ops.moments import get_mxu_precision
 
-        # same MXU precision as the propagated path (see the 2-D twin)
+        # same matmul precision as the propagated path (see the 2-D twin)
         return lax.conv_general_dilated(
             h, weights[name], (1, 1, 1), "VALID",
             dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),

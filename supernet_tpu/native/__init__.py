@@ -5,9 +5,10 @@ fixed-size batches on a background thread — the framework's native
 equivalent of the reference's tf.data C++ input runtime (`Brats.py:538-555`)
 minus its per-shard Python-pickle bounce (`Brats_functions.py:549-562`).
 
-The library is compiled on first use (g++ is part of the toolchain); if no
-compiler is available the callers fall back to the pure-Python loaders in
-``supernet_tpu.data``.
+The library is compiled from the committed ``io.cc`` on first use (g++ is
+part of the toolchain), and compiled again whenever the ``.so`` is older
+than its source; if no compiler is available the callers fall back to the
+pure-Python loaders in ``supernet_tpu.data``.
 """
 
 from __future__ import annotations
@@ -55,13 +56,22 @@ def _build() -> bool:
         return False
 
 
+def needs_build(so: str = _SO, src: str = _SRC) -> bool:
+    """True when ``so`` is missing or older than ``src``: a library left
+    from an older source, or built elsewhere, is never loaded."""
+    try:
+        return os.path.getmtime(so) < os.path.getmtime(src)
+    except FileNotFoundError:
+        return True
+
+
 def load_library() -> Optional[ctypes.CDLL]:
     """The shared library, building it on demand; None if unavailable."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_SO) and not _build():
+        if needs_build() and not _build():
             return None
         lib = ctypes.CDLL(_SO)
         lib.sn_open.restype = ctypes.c_void_p

@@ -1,10 +1,9 @@
-"""Variational-density-propagation (VDP) moment primitives, TPU-first.
+"""Variational-density-propagation (VDP) moment primitives.
 
 Each primitive pushes the first two moments (mean ``mu`` and diagonal
 variance ``sigma``, both NHWC ``float32``) of the activation distribution
 through one network operation, matching the analytic forms of the reference
-(`/root/reference/Hippocampus.py:26-331`, `Brats.py:34-320`) but re-derived
-for XLA/TPU:
+(`Hippocampus.py:26-331`, `Brats.py:34-320`) but re-derived for XLA:
 
 * The reference computes the three variance terms of a Bayesian conv with
   ``tf.image.extract_patches`` + dense matmuls, materializing
@@ -18,7 +17,7 @@ for XLA/TPU:
       sigma3 = patches(sigma)   @ bcast(s_w)  ==  winsum(sigma)   * s_w
 
   where ``winsum`` is a windowed sum over the k x k receptive field *and*
-  input channels. So one VDP conv = 2 MXU convolutions + 1 cheap VPU
+  input channels. So one VDP conv = 2 convolutions + 1 cheap elementwise
   window-sum — one HBM pass over (mu, sigma), zero patch materialization.
 
 * ``vrelu`` needs no autodiff tape (the reference runs an inner
@@ -52,38 +51,39 @@ from jax import lax
 Array = jax.Array
 MomentPair = Tuple[Array, Array]
 
-# NHWC activations, HWIO kernels — the native layouts for TPU convolutions.
+# NHWC activations, HWIO kernels.
 _DIMSPEC = ("NHWC", "HWIO", "NHWC")
 
-# MXU precision for the moment convolutions. "highest" = true f32 (multi-pass
-# on the MXU), "default" = bf16 multiplies with f32 accumulation (fastest).
-# The reference is f32 cuDNN, so "highest" is the parity-grade default;
-# switch to "default" for speed once a model's tolerance is validated.
-_MXU_PRECISION: str = "highest"
+# Matmul precision for the moment convolutions. "highest" = true f32,
+# "default" = the backend's fastest f32 mode (TF32 on the GPU's tensor
+# cores), with f32 accumulation. The reference is f32 cuDNN, so "highest"
+# is the parity-grade default; switch to "default" for speed once a
+# model's tolerance is validated.
+_PRECISION: str = "highest"
 
 
 def set_mxu_precision(precision: str) -> None:
-    """Set the global MXU precision for moment convs ('highest'|'default')."""
-    global _MXU_PRECISION
+    """Set the global matmul precision for moment convs
+    ('highest'|'high'|'default')."""
+    global _PRECISION
     if precision not in ("highest", "default", "high"):
         raise ValueError(f"unknown precision {precision!r}")
-    _MXU_PRECISION = precision
+    _PRECISION = precision
 
 
 def get_mxu_precision() -> str:
-    return _MXU_PRECISION
+    return _PRECISION
 
 
-# Kernel backend for the VDP convs: "xla" composes lax convolutions (works
-# everywhere); "pallas" uses the fused single-HBM-pass TPU kernel
-# (supernet_tpu.ops.pallas); "auto" picks pallas on TPU, xla elsewhere;
-# "naive" runs the reference's patch-matmul algorithm (ops/naive.py) — a
-# measured same-hardware baseline for bench.py, never a production path.
+# Kernel backend for the VDP convs: "xla" composes lax convolutions;
+# "naive" runs the reference's patch-matmul algorithm (ops/naive.py) — the
+# float32 reference the tests compare against and a same-hardware baseline
+# for bench.py, never a production path.
 _BACKEND: str = "xla"
 
 
 def set_backend(backend: str) -> None:
-    if backend not in ("xla", "pallas", "auto", "naive"):
+    if backend not in ("xla", "naive"):
         raise ValueError(f"unknown backend {backend!r}")
     global _BACKEND
     _BACKEND = backend
@@ -93,94 +93,22 @@ def get_backend() -> str:
     return _BACKEND
 
 
-def _use_pallas() -> bool:
-    if _BACKEND == "pallas":
-        return True
-    if _BACKEND != "auto":  # xla / naive
-        return False
-    from supernet_tpu.ops.pallas import pallas_supported
-
-    return pallas_supported()
-
-
-# Max-pool implementation. "xla" (default): the where-tree composition —
-# in the full model XLA fuses the preceding ReLU into the pool's slices
-# and keeps its preferred tiled layouts, which beats the Pallas kernel
-# pair end-to-end (BraTS step 67.5 vs 71.1 ms) even though the kernels
-# win in isolation 1.8x (the custom-call boundary forces standard layouts
-# and materializes the pool inputs). "auto"/"pallas": the fused kernels
-# (ops/pallas/pool.py) — "auto" falls back off-TPU or for odd spatial
-# dims; tests force "pallas" with interpret mode on CPU.
-_POOL: str = "xla"
-
-
-def set_pool_impl(v: str) -> None:
-    if v not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown pool impl {v!r}")
-    global _POOL
-    _POOL = v
-
-
-def get_pool_impl() -> str:
-    return _POOL
-
-
-def _use_pallas_pool(mu: Array) -> bool:
-    if _POOL == "xla" or _BACKEND == "naive":
-        return False
-    from supernet_tpu.ops.pallas.pool import pool_shape_supported
-
-    _, h, w, _ = mu.shape
-    if not pool_shape_supported(h, w):
-        return False
-    if _POOL == "pallas":
-        return True
-    from supernet_tpu.ops.pallas import pallas_supported
-
-    return pallas_supported()
-
-
-def _use_pallas_for(x: Array, w_mu: Array) -> bool:
-    """Backend says pallas AND this layer's shape is inside the fused
-    kernel's compile-safe envelope; otherwise the XLA composition is used
-    for this layer (per-layer mixed dispatch)."""
-    if not _use_pallas():
-        return False
-    k = w_mu.shape[0]
-    if k == 1:
-        # the 1x1 einsum special-case below beats the kernel (no window
-        # sum to fuse), and the head-layer kernel can exceed the scoped
-        # VMEM limit (measured: [20,54,54,32]->3 OOMs by 1.3M)
-        return False
-    from supernet_tpu.ops.pallas.vdp_conv import shape_supported
-
-    b, h, w, cin = x.shape
-    _, _, _, cout = w_mu.shape
-    return shape_supported(h, w, cin, cout, k)
-
-
 # Conv-fold mode for the XLA backend's variance path:
 #   "none"  — 3 kernels per vconv: mu conv, sigma conv, ones-kernel winsum.
 #   "sigma" — fold the winsum into the sigma conv as an extra input+output
 #             channel (blockdiag [w_mu^2, 0; 0, ones]): 2 kernels, same MACs,
-#             removes the 1->1-channel conv the MXU hates.
+#             no 1->1-channel conv.
 #   "full"  — ONE conv for everything: input [mu ‖ sigma ‖ winsum-src],
 #             kernel blockdiag [w_mu; w_mu^2; ones] -> [mu_out ‖ sig ‖ ws].
 #             2x the MACs of "none" but a single HBM pass; wins only if the
 #             layer is bandwidth/launch bound.
-# The default is set from TPU measurements (docs/PERFORMANCE.md): on a real
-# v5e the folded variants LOSE — the pre-conv concatenate materializes a full
-# extra activation tensor in HBM each layer, costing more than the 1-channel
-# winsum conv they remove (BraTS 182 img/s none vs 118 sigma vs 105 full;
-# Hippocampus 3883 vs 2498). "none" is the default; the folds stay as
-# A/B-able modes (SUPERNET_CONV_FOLD) for future shapes where they may pay.
+# The folds pay a pre-conv concatenate that materializes a full extra
+# activation tensor per layer. "none" is the default; the folds are A/B-able
+# modes (SUPERNET_CONV_FOLD), not yet measured on the GPU.
 _CONV_FOLD: str = "none"
 
-# Window-sum lowering: "shift" = separable slice-adds (pure VPU, no
-# 1-channel MXU conv), "conv" = ones-kernel VALID conv. See _window_sum.
-# Default from TPU v5e measurement (docs/PERFORMANCE.md round 4): shift is
-# +23% whole-step on the 3-D family at its best batch (286.5 -> 232.9
-# ms/step @ 16) and neutral on 2-D BraTS@128 (120.9 -> 120.1 ms).
+# Window-sum lowering: "shift" = separable slice-adds (elementwise, no
+# 1-channel conv), "conv" = ones-kernel VALID conv. See _window_sum.
 _WINSUM: str = "shift"
 
 
@@ -211,10 +139,8 @@ def get_conv_fold() -> str:
 # padding, the skip crop becomes negative conv padding, the concat becomes
 # a channel-block split of the kernel, and the constant sigma_fill border
 # becomes two analytic terms — so none of the padded / cropped /
-# concatenated moment tensors is materialized in HBM (VERDICT r3 #3:
-# slice/pad/concat measured 9.4 ms of a 120.5 ms BraTS@128 step). "none"
-# keeps the explicit choreography. A/B via SUPERNET_GLUE_FOLD; the default
-# is set from TPU measurements (docs/PERFORMANCE.md).
+# concatenated moment tensors is materialized in HBM. "none" keeps the
+# explicit choreography. A/B via SUPERNET_GLUE_FOLD.
 _GLUE_FOLD: str = "none"
 
 
@@ -229,41 +155,14 @@ def get_glue_fold() -> str:
     return _GLUE_FOLD
 
 
-# Sigma-chain backward implementation for the winsum * s_w term:
-#   "xla"    — XLA's AD (two multiply_reduce fusions + 1-channel spread).
-#   "pallas" — fused one-pass kernel (ops/pallas/sigma_bwd.py): the output
-#              cotangent is read ONCE producing both the spread spatial
-#              cotangent and the per-channel s_w gradient.
-# A/B-able via SUPERNET_SIGMA_BWD. Measured (docs/PERFORMANCE.md): the
-# pallas mode LOSES at every size — the custom-vjp seam defeats XLA's
-# fusion-domain remat — so "xla" stays the default; kept as the recorded
-# negative result VERDICT r2 #2 asked for.
-_SIGMA_BWD: str = "xla"
-
-
-def set_sigma_bwd(mode: str) -> None:
-    if mode not in ("xla", "pallas"):
-        raise ValueError(f"unknown sigma backward mode {mode!r}")
-    global _SIGMA_BWD
-    _SIGMA_BWD = mode
-
-
-def get_sigma_bwd() -> str:
-    return _SIGMA_BWD
-
-
-# Lowering of the `winsum * s_w` scale itself (forward op, not the
-# backward kernel above):
-#   "mul" — broadcast multiply. AD transposes the two broadcasts into VPU
-#           transpose-reduces; the exact-join 3-D trace measured them at
-#           26 ms / 11.3% of the batch-16 step (docs/PERFORMANCE.md).
+# Lowering of the `winsum * s_w` scale:
+#   "mul" — broadcast multiply. AD transposes the two broadcasts into
+#           transpose-reduces.
 #   "dot" — a size-1-contraction einsum [..,1]x[1,Cout]. dot_general's
 #           transpose is dot_general, so both backward contractions (the
 #           channel spread AND the batchxspace reduce for d s_w) lower as
-#           MXU mat-vecs instead of transpose-reduces. No custom-vjp seam
-#           (the sigma_bwd pallas lesson), so XLA's fusion domain is
-#           untouched.
-# A/B-able via SUPERNET_SW_SCALE; default from TPU measurement.
+#           mat-vecs instead of transpose-reduces.
+# A/B-able via SUPERNET_SW_SCALE.
 _SW_SCALE: str = "mul"
 
 
@@ -297,11 +196,10 @@ def scale_sw(ws: Array, s_w: Array) -> Array:
 
 # Channel-sum lowering inside the window sums (`sum over C_in` feeding the
 # k x k window accumulation):
-#   "reduce" — jnp.sum over the minor-most (lane) axis: a VPU cross-lane
-#              reduce, measured 12 ms / 5.2% of the 3-D@16 step.
-#   "dot"    — mat-vec against a ones [C, 1] kernel: same bytes, MXU
-#              accumulation, no cross-lane shuffles.
-# A/B-able via SUPERNET_CHANSUM; default from TPU measurement.
+#   "reduce" — jnp.sum over the minor-most axis.
+#   "dot"    — mat-vec against a ones [C, 1] kernel: same bytes, matmul
+#              accumulation.
+# A/B-able via SUPERNET_CHANSUM.
 _CHANSUM: str = "reduce"
 
 
@@ -333,11 +231,9 @@ def chan_sum(x: Array) -> Array:
 
 
 # Activation dtype for the moment tensors between layers. float32 is the
-# parity-grade default. bfloat16 halves the HBM traffic of every layer —
-# profiling shows this model is data-movement-bound on TPU (the MXU convs
-# are ~10 ms of a 109 ms BraTS step; the rest is copies/slices/elementwise),
-# so storing activations in bf16 is the single biggest lever. Convs always
-# accumulate in f32 (preferred_element_type); the loss head runs in f32.
+# parity-grade default. bfloat16 halves the HBM traffic of every layer.
+# Convs always accumulate in f32 (preferred_element_type); the loss head
+# runs in f32.
 _ACT_DTYPE = jnp.float32
 
 
@@ -359,14 +255,13 @@ def get_act_dtype():
 def apply_env_overrides() -> None:
     """Apply the SUPERNET_* env knobs to the ops-module globals:
 
-    SUPERNET_PRECISION=highest|high|default   (MXU passes for f32 moments)
-    SUPERNET_BACKEND=xla|pallas|auto|naive    (conv kernel backend)
+    SUPERNET_PRECISION=highest|high|default   (matmul precision, f32 moments)
+    SUPERNET_BACKEND=xla|naive                (conv kernel backend)
     SUPERNET_CONV_FOLD=none|sigma|full        (variance-path fusion mode)
     SUPERNET_WINSUM=shift|conv                (window-sum lowering)
     SUPERNET_SW_SCALE=mul|dot                 (winsum * s_w scale lowering)
     SUPERNET_CHANSUM=reduce|dot               (channel-sum lowering)
     SUPERNET_ACT_DTYPE=float32|bfloat16       (inter-layer activation dtype)
-    SUPERNET_POOL=auto|xla|pallas             (max-pool implementation)
     SUPERNET_CONV2D=conv|im2col               (2-D moment-conv lowering)
     SUPERNET_CONV3D=conv|im2col               (3-D moment-conv lowering)
 
@@ -387,12 +282,6 @@ def apply_env_overrides() -> None:
     v = os.environ.get("SUPERNET_ACT_DTYPE")
     if v:
         set_act_dtype(v)
-    v = os.environ.get("SUPERNET_POOL")
-    if v:
-        set_pool_impl(v)
-    v = os.environ.get("SUPERNET_SIGMA_BWD")
-    if v:
-        set_sigma_bwd(v)
     v = os.environ.get("SUPERNET_GLUE_FOLD")
     if v:
         set_glue_fold(v)
@@ -428,8 +317,8 @@ def _conv_valid(x: Array, w: Array, stride: int = 1) -> Array:
 
     The output dtype matches the input dtype (conv_general_dilated's
     transpose rule rejects mixed in/out dtypes, which reverse-mode AD needs).
-    For bf16 inputs the MXU still accumulates partial products in f32
-    internally; only the final output is rounded to bf16.
+    For bf16 inputs the partial products still accumulate in f32; only
+    the final output is rounded to bf16.
     """
     return lax.conv_general_dilated(
         x,
@@ -437,7 +326,7 @@ def _conv_valid(x: Array, w: Array, stride: int = 1) -> Array:
         window_strides=(stride, stride),
         padding="VALID",
         dimension_numbers=_DIMSPEC,
-        precision=_MXU_PRECISION,
+        precision=_PRECISION,
         preferred_element_type=x.dtype,
     )
 
@@ -445,10 +334,8 @@ def _conv_valid(x: Array, w: Array, stride: int = 1) -> Array:
 # -- 2-D conv lowering A/B (SUPERNET_CONV2D=conv|im2col) --------------------
 # The 2-D twin of moments3d's contraction-packing knob: "im2col" lowers
 # the k>1 moment convs as k^2 shifted-slice patch concat + dot_general
-# with the packed k^2*C_in contraction (288 at k=3, C_in=32). Exists so
-# the exact-join profile's occupancy hypothesis is A/B-testable in pure
-# XLA on the 2-D families too; the measured default stays "conv" unless
-# the TPU A/B says otherwise (docs/PERFORMANCE.md).
+# with the packed k^2*C_in contraction (288 at k=3, C_in=32), A/B-testable
+# against the conv lowering in pure XLA; "conv" is the default.
 _CONV2D_IMPL: str = "conv"
 
 
@@ -481,7 +368,7 @@ def _im2col2d_dot(patches: Array, w_flat: Array) -> Array:
         "bhwp,po->bhwo",
         patches,
         w_flat.astype(patches.dtype),
-        precision=_MXU_PRECISION,
+        precision=_PRECISION,
         preferred_element_type=patches.dtype,
     )
 
@@ -490,8 +377,8 @@ def _winsum_shift(xc: Array, k: int, stride: int) -> Array:
     """Separable shift-add VALID window sum over every spatial axis of a
     single-channel [B, *spatial, 1] tensor: per axis, the k strided views
     are added elementwise (k-1 adds), so the k^d window sum costs d*(k-1)
-    full-tensor VPU adds and never touches the MXU. The transpose is the
-    same chain of pads+adds, also pure VPU."""
+    full-tensor adds and no matmul. The transpose is the same chain of
+    pads+adds."""
     s = xc
     for axis in range(1, xc.ndim - 1):
         n = s.shape[axis]
@@ -530,10 +417,7 @@ def _window_sum(x: Array, k: int, stride: int = 1) -> Array:
     Returns shape [B, H', W', 1]. Two lowerings behind SUPERNET_WINSUM:
 
     - "shift" (default): channel-sum, then ``_winsum_shift`` — 2(k-1)
-      full-tensor adds on a single-channel tensor, all VPU. The round-4
-      3-D per-op trace (docs/PERFORMANCE.md) showed the conv form burning
-      14% of the whole train step on C_in==C_out==1 MXU convs at ~1/16k
-      occupancy; the shift form removes that bucket in both ranks.
+      full-tensor adds on a single-channel tensor, no C_in==C_out==1 conv.
     - "conv": the original single-output-channel ones-kernel VALID conv.
 
     Both are robustly reverse-mode differentiable inside ``jit`` — unlike
@@ -545,9 +429,9 @@ def _window_sum(x: Array, k: int, stride: int = 1) -> Array:
     # noise into sigma); only the single-channel RESULT is stored in the
     # activation dtype — one rounding, same 2^-8 relative error as every
     # other bf16 op in the sigma chain, and it keeps the f32 upcast out of
-    # the backward broadcast (BraTS bf16 step 63.9 -> 60.5 ms). The k x k
-    # window accumulation stays in f32 in both modes (the MXU always
-    # accumulates f32; the shift path adds in f32 and rounds once).
+    # the backward broadcast. The k x k window accumulation stays in f32 in
+    # both modes (convs accumulate f32; the shift path adds in f32 and
+    # rounds once).
     xc = chan_sum(x)
     if _WINSUM == "shift":
         return _winsum_shift(xc, k, stride).astype(x.dtype)
@@ -573,23 +457,18 @@ def vconv_input(
         from supernet_tpu.ops.naive import vconv_input_naive
 
         return vconv_input_naive(x, w_mu, w_sigma, stride)
-    if stride == 1 and _use_pallas_for(x, w_mu):
-        from supernet_tpu.ops.pallas import vdp_conv
-
-        return vdp_conv(x, None, w_mu, w_sigma, precision=_MXU_PRECISION)
     k = w_mu.shape[0]
     s_w = jax.nn.softplus(w_sigma)
     x = _act(x)
     if k == 1 and stride == 1:
         # 1x1 conv: the k x k window-sum over input channels is a plain
-        # channel sum — no ones-kernel conv (whose C_out == 1 occupies a
-        # full MXU pass at 1/128 of its throughput).
+        # channel sum — no ones-kernel conv with C_out == 1.
         w2 = _act(w_mu[0, 0])
         mu_out = jnp.einsum(
             "bhwc,co->bhwo",
             x,
             w2,
-            precision=_MXU_PRECISION,
+            precision=_PRECISION,
             preferred_element_type=x.dtype,
         )
         t = jnp.sum(jnp.square(x.astype(jnp.float32)), -1, keepdims=True)
@@ -599,7 +478,7 @@ def vconv_input(
     if _CONV_FOLD != "none":
         # one conv computes mu AND the window-sum: input [x ‖ sum(x^2)],
         # kernel blockdiag [w_mu, 0; 0, ones] — the 1-channel winsum rides
-        # the MXU pass the mu conv already pays for.
+        # the mu conv.
         cin, cout = w_mu.shape[2], w_mu.shape[3]
         # f32 accumulation, result in the activation dtype (same policy
         # as _window_sum)
@@ -618,15 +497,6 @@ def vconv_input(
         ws = _act(_window_sum(jnp.square(x), k, stride))
         return _act(mu_out), scale_sw(ws, s_w)
     mu_out = _conv_valid(x, w_mu, stride)
-    if _SIGMA_BWD == "pallas" and stride == 1:
-        from supernet_tpu.ops.pallas.sigma_bwd import winsum_scale
-
-        # channel sum in f32, result in act dtype (same policy as
-        # _window_sum); the k x k spread + s_w scale get the fused backward
-        sc = jnp.sum(jnp.square(x.astype(jnp.float32)), axis=-1).astype(
-            x.dtype
-        )
-        return _act(mu_out), _act(winsum_scale(sc, s_w, k))
     ws = _act(_window_sum(jnp.square(x), k, stride))
     return _act(mu_out), scale_sw(ws, s_w)
 
@@ -646,10 +516,6 @@ def vconv(
         from supernet_tpu.ops.naive import vconv_naive
 
         return vconv_naive(mu, sigma, w_mu, w_sigma, stride)
-    if stride == 1 and _use_pallas_for(mu, w_mu):
-        from supernet_tpu.ops.pallas import vdp_conv
-
-        return vdp_conv(mu, sigma, w_mu, w_sigma, precision=_MXU_PRECISION)
     k = w_mu.shape[0]
     cin, cout = w_mu.shape[2], w_mu.shape[3]
     s_w = jax.nn.softplus(w_sigma)
@@ -662,7 +528,7 @@ def vconv(
             "bhwc,co->bhwo",
             mu,
             w2,
-            precision=_MXU_PRECISION,
+            precision=_PRECISION,
             preferred_element_type=mu.dtype,
         )
         t = jnp.sum(
@@ -672,7 +538,7 @@ def vconv(
             "bhwc,co->bhwo",
             sigma,
             jnp.square(w2),
-            precision=_MXU_PRECISION,
+            precision=_PRECISION,
             preferred_element_type=sigma.dtype,
         )
         return _act(mu_out), _act(sigma_out)
@@ -713,8 +579,7 @@ def vconv(
     if _CONV_FOLD == "sigma":
         # fold the winsum into the sigma conv: input [sigma ‖ sum(mu^2+sigma)],
         # kernel blockdiag [w_mu^2, 0; 0, ones] — 2 kernels per vconv instead
-        # of 3, and no 1->1-channel conv (which occupies a full MXU pass for
-        # 1/128^2 of its throughput).
+        # of 3, and no 1->1-channel conv.
         t = jnp.sum(
             (jnp.square(mu) + sigma).astype(jnp.float32),
             axis=-1,
@@ -726,16 +591,6 @@ def vconv(
         out = _conv_valid(z, kern, stride)
         sigma_out = out[..., :cout] + out[..., cout:] * s_w
         return _act(mu_out), _act(sigma_out)
-    if _SIGMA_BWD == "pallas" and stride == 1:
-        from supernet_tpu.ops.pallas.sigma_bwd import winsum_scale
-
-        sc = jnp.sum(
-            (jnp.square(mu) + sigma).astype(jnp.float32), axis=-1
-        ).astype(mu.dtype)
-        sigma_out = winsum_scale(sc, s_w, k) + _conv_valid(
-            sigma, jnp.square(w_mu), stride
-        )
-        return _act(mu_out), _act(sigma_out)
     # cast the [B,H',W',1] window-sum before the broadcast multiply so the
     # full-width sigma chain stays in the activation dtype
     ws = _act(_window_sum(jnp.square(mu) + sigma, k, stride))
@@ -746,26 +601,13 @@ def vconv(
 def vconv_relu(
     mu: Array, sigma: Array, w_mu: Array, w_sigma: Array
 ) -> MomentPair:
-    """``vrelu(*vconv(...))`` — fused into one kernel on the pallas backend
-    (the conv -> relu pair is the encoder/decoder hot path,
-    `Hippocampus.py:374-415`)."""
-    if _use_pallas_for(mu, w_mu):
-        from supernet_tpu.ops.pallas import vdp_conv
-
-        return vdp_conv(
-            mu, sigma, w_mu, w_sigma, fuse_relu=True, precision=_MXU_PRECISION
-        )
+    """``vrelu(*vconv(...))`` — the conv -> relu pair of the encoder and
+    decoder blocks (`Hippocampus.py:374-415`)."""
     return vrelu(*vconv(mu, sigma, w_mu, w_sigma))
 
 
 def vconv_input_relu(x: Array, w_mu: Array, w_sigma: Array) -> MomentPair:
-    """``vrelu(*vconv_input(...))`` with the same pallas fusion."""
-    if _use_pallas_for(x, w_mu):
-        from supernet_tpu.ops.pallas import vdp_conv
-
-        return vdp_conv(
-            x, None, w_mu, w_sigma, fuse_relu=True, precision=_MXU_PRECISION
-        )
+    """``vrelu(*vconv_input(...))`` — the first block's conv -> relu."""
     return vrelu(*vconv_input(x, w_mu, w_sigma))
 
 
@@ -788,12 +630,11 @@ def vmaxpool(mu: Array, sigma: Array) -> MomentPair:
     ``include_batch_in_index=True``. TF's argmax resolves ties to the lowest
     flat index; within a window, row-major order == flat-index order.
 
-    TPU-first formulation: instead of window reshape + argmax + gather
-    (a 6-D relayout plus a gather — measured 17.5 ms on a [20,60,60,32]
-    input, half the whole forward pass), take the four strided window
-    elements as plain slices and select sigma with a nested ``where`` in
-    row-major order, which reproduces first-occurrence tie-breaking exactly.
-    Pure VPU; measured ~30x faster. The max itself is a 3-op maximum tree
+    Instead of window reshape + argmax + gather (a 6-D relayout plus a
+    gather), take the four strided window elements as plain slices and
+    select sigma with a nested ``where`` in row-major order, which
+    reproduces first-occurrence tie-breaking exactly. Purely elementwise.
+    The max itself is a 3-op maximum tree
     whose gradient also routes ties to the earlier element (lax.max takes
     the lhs branch on equality), matching TF's pool gradient.
 
@@ -805,10 +646,6 @@ def vmaxpool(mu: Array, sigma: Array) -> MomentPair:
         from supernet_tpu.ops.naive import vmaxpool_naive
 
         return vmaxpool_naive(mu, sigma)
-    if _use_pallas_pool(mu):
-        from supernet_tpu.ops.pallas.pool import vmaxpool_pallas
-
-        return vmaxpool_pallas(mu, sigma)
     return _vmaxpool_fast(mu, sigma)
 
 
@@ -819,8 +656,7 @@ def _pool_taps(x: Array):
     Expressed as one reshape splitting H and W by 2 plus unit-index
     slices instead of four stride-2 slices: identical values, but XLA
     lowers this to a single relayout feeding cheap contiguous reads
-    rather than four strided-window passes (BraTS bf16 step 60.5 ->
-    58.6 ms together with the window-sum dtype change)."""
+    rather than four strided-window passes."""
     b, h, w, c = x.shape
     r = x.reshape(b, h // 2, 2, w // 2, 2, c)
     return (
@@ -881,11 +717,9 @@ def _vmaxpool_bwd(res, g):
     resolution: upsample the grad and the tap index 2x nearest and keep
     only pixels whose window-parity equals the index.
 
-    Three lowering attempts, measured on the full BraTS bf16 train step:
-    transpose-of-slices (naive AD) lowers to scatter chains (~9 ms for
-    pool0 alone); four masked quarter-grids + stack/reshape pixel-shuffle
-    costs 67.6 ms/step in 6-D relayout copies; this parity form is pure
-    broadcast+elementwise and measures 64.9 ms/step.
+    Transpose-of-slices (plain AD) lowers to scatter chains, and four
+    masked quarter-grids + a stack/reshape pixel-shuffle to 6-D relayout
+    copies; this parity form is pure broadcast+elementwise.
     """
     g_mu, g_sigma = g
     idx, (h, w) = res
@@ -936,11 +770,9 @@ def vunpool_conv2(
 
         out[2i+1-a, 2j+1-b] = sum_c x[i,j,c] * W[a,b,c,o]
 
-    Expressed as ONE input-dilated (lhs_dilation=2) convolution per moment:
-    XLA's TPU conv emitter skips the zero positions natively, so the MXU
-    work equals the four-parity-1x1-convs formulation this replaces, with
-    none of that formulation's stack/reshape pixel-shuffle relayouts
-    (measured: bit-identical outputs, BraTS bf16 step 64.9 -> 64.2 ms).
+    Expressed as ONE input-dilated (lhs_dilation=2) convolution per moment,
+    with none of the stack/reshape pixel-shuffle relayouts of a
+    four-parity-1x1-convs formulation.
     The 2x2 window sum of the interleaved (mu^2 + sigma) sees exactly one
     nonzero pixel per window, so it is the channel sum nearest-upsampled.
     """
@@ -968,7 +800,7 @@ def vunpool_conv2(
             padding=((1, 1), (1, 1)),
             lhs_dilation=(2, 2),
             dimension_numbers=_DIMSPEC,
-            precision=_MXU_PRECISION,
+            precision=_PRECISION,
             preferred_element_type=x.dtype,
         )
 
@@ -1041,7 +873,7 @@ def _conv_pad(x: Array, w: Array, pad_h, pad_w, stride: int = 1) -> Array:
         window_strides=(stride, stride),
         padding=(tuple(pad_h), tuple(pad_w)),
         dimension_numbers=_DIMSPEC,
-        precision=_MXU_PRECISION,
+        precision=_PRECISION,
         preferred_element_type=x.dtype,
     )
 
@@ -1108,7 +940,7 @@ def vglue_conv_relu(
     shift = _WINSUM == "shift"
     # in shift mode every window sum below is slice-adds on a padded or
     # cropped SINGLE-channel source (1/C the bytes of the activation pad
-    # the fold avoids) — no 1-channel MXU conv passes
+    # the fold avoids) — no 1-channel conv passes
     ones = None if shift else jnp.ones((k, k, 1, 1), mu.dtype)
 
     mu_out = _conv_pad(mu, w_d, pad_d, pad_d)

@@ -20,9 +20,8 @@ Same math as `ops/moments.py`, one rank up, correctness-first:
 - unpool is one `lax.pad` with interior padding on all three spatial dims
   (2w+1 geometry, values at odd indices, `Hippocampus.py:26-51` per axis).
 
-This path deliberately has NO custom VJPs or Pallas kernels: round 2/3
-measured that XLA's own fusions win at these sizes (docs/PERFORMANCE.md
-dead-ends table); the 3-D ops start from — and stay on — the XLA path.
+This path deliberately has NO hand-written kernels: the 3-D ops are the
+XLA composition, like the 2-D ones (the max-pool's custom VJP aside).
 """
 
 from __future__ import annotations
@@ -51,15 +50,12 @@ MomentPair = Tuple[Array, Array]
 _DN = ("NDHWC", "DHWIO", "NDHWC")
 
 # --------------------------------------------------------------------------
-# 3-D conv lowering knob (VERDICT r4 #2): the round-4 exact-join trace
-# showed the 3-D step is 66% MXU convs running at ~15% of MXU peak — with
-# C_in=32 the conv's contraction occupies a quarter of the 128-lane
-# systolic array at best. "im2col" re-lowers the k>1 moment convs as
+# 3-D conv lowering knob: "im2col" re-lowers the k>1 moment convs as
 # patch-concat + dot_general with the FULL k^3*C_in (= 864 at k=3,
-# C_in=32) contraction — a pure-XLA test of the occupancy hypothesis, no
-# Pallas, no custom-vjp seam. Costs a k^3-times patch materialization per
-# conv input, so it pays only if the occupancy win beats the extra HBM
-# traffic: measured A/B decides the default (docs/PERFORMANCE.md).
+# C_in=32) contraction — a pure-XLA test of whether a deeper contraction
+# fills the matrix units better than the C_in=32 conv. Costs a k^3-times
+# patch materialization per conv input, so it pays only if that win beats
+# the extra HBM traffic; "conv" is the default.
 # --------------------------------------------------------------------------
 _CONV3D_IMPL = "conv"
 
@@ -91,8 +87,8 @@ def _im2col3d(x: Array, k: int, stride: int = 1) -> Array:
 
 
 def _im2col_dot(patches: Array, w_flat: Array) -> Array:
-    """[B, D', H', W', k^3*Cin] @ [k^3*Cin, Cout] on the MXU with the full
-    packed contraction."""
+    """[B, D', H', W', k^3*Cin] @ [k^3*Cin, Cout] with the full packed
+    contraction."""
     return jnp.einsum(
         "bdhwp,po->bdhwo",
         patches,
@@ -105,7 +101,7 @@ def _im2col_dot(patches: Array, w_flat: Array) -> Array:
 def _conv3d_valid(x: Array, w: Array, stride: int = 1) -> Array:
     # output dtype matches the input: conv's transpose rule rejects mixed
     # in/out dtypes under reverse-mode AD (same as 2-D `_conv_valid`);
-    # the MXU still accumulates partial products in f32 internally.
+    # partial products still accumulate in f32.
     # precision follows the same global knob as the 2-D family
     # (SUPERNET_PRECISION; 'highest' = parity-grade f32 multiplies)
     return lax.conv_general_dilated(
@@ -123,9 +119,8 @@ def _window_sum3d(x: Array, k: int, stride: int = 1) -> Array:
     """Channel sum then k^3 VALID window sum -> [B, D', H', W', 1].
 
     Lowering follows the shared SUPERNET_WINSUM knob (see 2-D
-    ``_window_sum``): "shift" does 3(k-1) separable slice-adds on the VPU;
-    "conv" runs the ones-kernel conv the round-4 trace measured at 14% of
-    the whole 3-D train step (C_in==C_out==1 on the MXU)."""
+    ``_window_sum``): "shift" does 3(k-1) separable slice-adds; "conv"
+    runs a ones-kernel conv with C_in == C_out == 1."""
     s = chan_sum(x)
     if get_winsum() == "shift":
         return _act(_winsum_shift(s, k, stride))
@@ -183,8 +178,8 @@ def vconv3d(
     s_w = jax.nn.softplus(w_sigma.astype(jnp.float32))
     if k == 1 and stride == 1:
         # 1x1x1 conv (the segmentation head): einsum form — see
-        # vconv3d_input's k=1 branch for why (MXU occupancy + GSPMD
-        # partitionability under the ensemble member vmap)
+        # vconv3d_input's k=1 branch for why (no C_out-starved conv +
+        # GSPMD partitionability under the ensemble member vmap)
         mu_a, sigma_a = _act(mu), _act(sigma)
         w2 = _act(w_mu[0, 0, 0])
         mu_out = jnp.einsum(
@@ -236,8 +231,7 @@ def vmaxpool3d(mu: Array, sigma: Array) -> MomentPair:
     226-234`). SAME padding; TF's first-flat-index tie-break preserved by
     selecting taps in (d, h, w) scan order.
 
-    Round-4 port of the two 2-D pool lessons (docs/PERFORMANCE.md "The
-    max-pool lesson"): the eight window taps come from ONE reshape
+    Port of the two 2-D pool formulations: the eight window taps come from ONE reshape
     splitting each spatial dim by 2 plus unit-index slices (a single
     relayout feeding contiguous reads, not 8 strided-window passes), and
     a hand-derived parity-form custom VJP replaces the transpose of

@@ -104,8 +104,8 @@ def vconv_naive(
 def vmaxpool_naive(mu: Array, sigma: Array) -> tuple[Array, Array]:
     """Reference algorithm for the pool (`Hippocampus.py:54-64,226-234`):
     argmax over each 2x2 window + a gather of sigma at the argmax (the
-    TF ``max_pool_with_argmax`` + flat ``tf.gather`` analog; measured ~20x
-    slower than the strided-slice/where tree in moments.vmaxpool on TPU)."""
+    TF ``max_pool_with_argmax`` + flat ``tf.gather`` analog, against the
+    strided-slice/where tree of moments.vmaxpool)."""
     b, h, w, c = mu.shape
     # SAME-pad odd spatial dims at the bottom/right like the production
     # vmaxpool (padded mu lanes are -inf so they never win)

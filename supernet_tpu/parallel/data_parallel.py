@@ -1,15 +1,15 @@
-"""Data-parallel training over a TPU device mesh.
+"""Data-parallel training over a device mesh.
 
 The reference is single-device research code with zero distributed machinery
 (SURVEY.md §2.8 — no `tf.distribute`/NCCL/MPI anywhere; the GPU list is only
-printed, `Brats.py:9-10`). This module is the TPU-native design the reference
-never had:
+printed, `Brats.py:9-10`). This module is the design the reference never
+had:
 
-- a 1-D ``jax.sharding.Mesh`` over the ``data`` axis (ICI-connected chips);
+- a 1-D ``jax.sharding.Mesh`` over the ``data`` axis;
 - inputs batch-sharded via ``NamedSharding(P("data"))``, parameters and
   optimizer state replicated via ``NamedSharding(P())``;
 - the train step jitted with explicit in/out shardings — XLA inserts the
-  gradient ``psum`` over ICI automatically from the sharding constraints
+  gradient ``psum`` automatically from the sharding constraints
   (the "let-the-compiler-insert-collectives" recipe); a ``shard_map`` variant
   with an explicit ``lax.pmean`` is provided for parity testing and for when
   manual collective placement is needed.
@@ -116,7 +116,7 @@ def make_sharded_train_step(
 
     Default path: ``jit`` with sharding constraints — the global-batch loss
     is a mean over sharded pixels, so XLA lowers the gradient reduction to a
-    ``psum`` over ICI on its own. ``use_shard_map=True`` switches to an
+    ``psum`` on its own. ``use_shard_map=True`` switches to an
     explicit per-shard ``value_and_grad`` + ``lax.pmean`` inside
     ``shard_map`` (identical numerics; manual collective placement).
     ``with_pred=True`` additionally returns the batch-sharded argmax
@@ -218,7 +218,7 @@ def make_dp_train_step3d(
     the SHARED 3-D step body (`train3d._train_step3d` — same augmentation
     and objective as the plain-jit and spatially-sharded paths). Inputs are
     the GLOBAL batch; the global-mean loss makes XLA lower the gradient
-    reduction to a ``psum`` over ICI. Complements
+    reduction to a ``psum``. Complements
     `spatial.make_spatial_train_step3d` (which shards the volume's scan
     axis instead — use that when ONE volume's activations overflow a chip,
     this when many volumes fit)."""

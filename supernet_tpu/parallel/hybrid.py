@@ -3,7 +3,7 @@
 The reference is single-GPU TF2 scripts (SURVEY.md §2.8 — no distributed
 backend at all); data parallelism and spatial (halo-exchange)
 partitioning were built separately in `parallel.data_parallel` and
-`parallel.spatial`. This module composes them the TPU-native way: ONE
+`parallel.spatial`. This module composes them in ONE
 ``jax.sharding.Mesh`` with a ``data`` axis and a ``space`` axis, the
 batch sharded over ``data`` AND the image H (or volume D) axis sharded
 over ``space`` in the same jitted step. XLA's SPMD partitioner (GSPMD)
@@ -19,12 +19,11 @@ derives every collective from the sharding annotations alone:
 When to use which axis: ``data`` scales throughput with more chips
 (needs global batch >= n_data); ``space`` scales the per-sample
 activation footprint (whole-volume 3-D training where one sample's
-activation pairs exceed a chip's HBM). The 2-D mesh covers the regime
-where BOTH bind — e.g. batch 4 of 240^3 BraTS volumes on a 16-chip
-slice as a (4 data) x (4 space) mesh. Lay the ``space`` axis on the
-mesh's minor (fastest, ring-adjacent) dimension so the per-step halo
-exchanges ride nearest-neighbor ICI links; the once-per-step gradient
-all-reduce tolerates the longer hops.
+activation pairs exceed a device's memory). The 2-D mesh covers the
+regime where BOTH bind — e.g. batch 4 of 240^3 BraTS volumes on 16
+devices as a (4 data) x (4 space) mesh. The ``space`` axis is the mesh's
+minor dimension (adjacent device ids), where the per-step halo exchanges
+run.
 
 Numerics match the unsharded step to f32 reduction-order tolerance
 (tests/test_hybrid.py), same as each 1-D specialization.
@@ -52,9 +51,8 @@ def make_mesh2d(
     axis_names: Tuple[str, str] = _AXES,
 ) -> Mesh:
     """A (n_data, n_space) device mesh. ``axis_names[1]`` (space) is the
-    minor axis — adjacent device ids, i.e. nearest-neighbor ICI on a real
-    slice — because the halo exchanges run once per window op while the
-    gradient all-reduce runs once per step."""
+    minor axis — adjacent device ids — because the halo exchanges run once
+    per window op while the gradient all-reduce runs once per step."""
     devices = jax.devices()
     n = n_data * n_space
     if len(devices) < n:

@@ -2,9 +2,9 @@
 
 The reference is strictly single-GPU (SURVEY.md §2.8); the single-host DP
 path here (`parallel/data_parallel.py`) shards a host-resident global
-batch over one process's devices. On a multi-host TPU slice each process
-sees only its local devices and loads only its slice of the data, and the
-collectives ride ICI within a slice / DCN across slices — but the jitted
+batch over one process's devices. On several hosts each process sees
+only its local devices and loads only its slice of the data, and the
+collectives cross the network between hosts — but the jitted
 train step itself is UNCHANGED: GSPMD partitions the same program over the
 global mesh. These helpers supply the three things that do change:
 

@@ -2,12 +2,12 @@
 
 The reference has no sequence/spatial parallelism (SURVEY.md §2.8: the
 spatial axis is this conv model's analog of sequence parallelism, listed as
-a stretch item in §7.4). This module provides the TPU-native building
-block: the image's H axis is sharded over the mesh, each 3x3 VALID moment
-conv exchanges one boundary row with each neighbor over ICI
-(``lax.ppermute``), and every device computes its H_loc output rows
-locally — activation memory and conv FLOPs scale 1/D with the mesh size,
-enabling inference on scans far larger than one chip's HBM.
+a stretch item in §7.4). This module provides the building block: the
+image's H axis is sharded over the mesh, each 3x3 VALID moment conv
+exchanges one boundary row with each neighbor (``lax.ppermute``), and
+every device computes its H_loc output rows locally — activation memory
+and conv FLOPs scale 1/D with the mesh size, enabling inference on scans
+far larger than one device's memory.
 
 Exact-VALID bookkeeping: with one zero halo row materializing at the mesh
 edges, device d computes global output rows ``[d*H_loc - 1, (d+1)*H_loc - 2]``;
@@ -137,13 +137,13 @@ def make_spatial_forward(cfg, mesh: Mesh, axis_name: str = "data"):
     """The FULL U-Net forward with the image H axis sharded over the mesh —
     spatial (sequence-parallel analog) partitioning of the whole model.
 
-    TPU-native design: instead of hand-rolling halo exchanges through every
+    Design: instead of hand-rolling halo exchanges through every
     VALID conv / pool / unpool / crop-concat (the offset bookkeeping the
     manual blocks above do for one block), the model is jitted with the
     batch replicated and H sharded, with a ``lax.with_sharding_constraint``
     re-pinning H to the mesh after every encoder/decoder block. XLA's SPMD
     partitioner (GSPMD, built for exactly this spatial partitioning) inserts
-    the minimal halo exchanges (collective-permutes over ICI) for each
+    the minimal halo exchanges (collective-permutes) for each
     window op and handles the uneven shard sizes the VALID chain produces.
     Activation memory per chip scales ~1/D — this is the path for scans far
     larger than one chip's HBM.

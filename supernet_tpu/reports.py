@@ -32,16 +32,25 @@ import numpy as np
 
 from supernet_tpu.metrics import uncertainty_at_prediction
 
-try:  # headless-safe matplotlib, optional
-    import matplotlib
+# matplotlib is optional and imported on first use (headless backend):
+# the train/eval/serve path runs without it and then writes no figures
+plt = None
+LinearSegmentedColormap = None
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-    from matplotlib.colors import LinearSegmentedColormap
 
-    _HAVE_MPL = True
-except Exception:  # pragma: no cover
-    _HAVE_MPL = False
+def _have_mpl() -> bool:
+    global plt, LinearSegmentedColormap
+    if plt is None:
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as _plt
+            from matplotlib.colors import LinearSegmentedColormap as _lsc
+        except ImportError:
+            return False
+        plt, LinearSegmentedColormap = _plt, _lsc
+    return True
 
 
 _COLORS = {
@@ -259,7 +268,7 @@ class UncertaintyAccumulator:
         mean_u = self._total_sum / self._total_cnt if self._total_cnt else float("nan")
         out: Dict[str, float] = {"mean": mean_u}
 
-        if _HAVE_MPL and self._stash:
+        if _have_mpl() and self._stash:
             img_dir = os.path.join(path, "test_images")
             os.makedirs(img_dir, exist_ok=True)
             cmap = label_colormap(n_classes)
@@ -470,7 +479,7 @@ def save_saliency_maps(
     raw-gradient saliency and the ReLU'd saliency (plus the structure mask
     when given). The gradients come from ``attacks.make_saliency_map``
     (`Brats.py:598-609`)."""
-    if not _HAVE_MPL:  # pragma: no cover
+    if not _have_mpl():  # pragma: no cover
         return
     os.makedirs(path, exist_ok=True)
     n_mod = x.shape[-1] if x.ndim == 3 else 1
@@ -507,7 +516,7 @@ def save_training_curves(
     path: str, curves: Dict[str, Sequence[float]], prefix: str = ""
 ) -> None:
     """Per-epoch metric curves as PNGs (`Hippocampus.py:744-792`)."""
-    if not _HAVE_MPL:  # pragma: no cover
+    if not _have_mpl():  # pragma: no cover
         return
     os.makedirs(path, exist_ok=True)
     for name, values in curves.items():
@@ -553,7 +562,7 @@ def save_reference_training_curves(
         pickle.dump([train_acc, valid_acc, train_err, valid_err], f)
 
     epochs = len(train_err)
-    if not _HAVE_MPL or epochs <= 1:  # pragma: no cover - mpl guard
+    if not _have_mpl() or epochs <= 1:  # pragma: no cover - mpl guard
         return
 
     def _fig(series, ylabel, fname, ylim=None, loc="lower right"):
@@ -627,7 +636,7 @@ def save_uncertainty_slices3d(
     out = {"mean": float(np.mean(uncert))}
     with open(os.path.join(path, "uncertainty_info.pkl"), "wb") as f:
         pickle.dump([probs, sigma, volumes, labels], f)
-    if _HAVE_MPL and images_n > 0:
+    if _have_mpl() and images_n > 0:
         img_dir = os.path.join(path, "test_images")
         os.makedirs(img_dir, exist_ok=True)
         cmap = label_colormap(n_classes)

@@ -4,14 +4,15 @@ padded-batch inference session.
 The reference has no deployment story — prediction happens inline in the
 training scripts via ``model(...)`` calls (`Hippocampus.py:894-1049`,
 `Brats.py:984-1049`). A production framework needs a frozen,
-compile-once inference path. TPU-native design decisions:
+compile-once inference path. Design decisions:
 
 - the forward pass is a pure function ``(params, x) -> (probs, sigma)``
   (models/unet.py), so serving is: AOT-compile that function ONCE at a
   fixed batch size and keep the parameters resident in device HBM;
 - variable request sizes are handled by pad-to-batch + slice rather
   than recompilation — XLA specializes on static shapes, and a fresh
-  compile (~20-40 s on TPU) in the request path would stall serving;
+  compile (tens of seconds for the full model) in the request path would
+  stall serving;
 - ``export_stablehlo`` emits the portable StableHLO module for external
   runtimes (PJRT plugins / IFRT serving stacks) so deployment does not
   require Python or this package;
@@ -387,7 +388,7 @@ class EnsembleSession(InferenceSession):
 
     With a ``mesh``, the MEMBER axis shards over the mesh's data axis:
     each device runs its members on the full (replicated) batch and the
-    mixture means become one all-reduce over ICI — embarrassingly
+    mixture means become one all-reduce — embarrassingly
     parallel ensemble serving in the same compiled program. When
     ``K % n_devices != 0`` the member axis is padded with zero-weight
     repeats of the last member, so any K serves on any mesh.
@@ -449,17 +450,31 @@ class EnsembleSession(InferenceSession):
             self._params = jax.device_put(stacked)
             self._fn = jax.jit(efn)
         else:
+            # shard_map over the member axis: each device vmaps its own
+            # block of members and the weighted sums are psum'd. (Left to
+            # the SPMD partitioner, the vmapped convs — grouped
+            # convolutions over the member axis — came out wrong at full
+            # width when sharded on that axis.)
+            from jax import shard_map
             from jax.sharding import NamedSharding, PartitionSpec as P
 
             self._mesh = mesh
             members_sh = NamedSharding(mesh, P("data"))
-            rep = NamedSharding(mesh, P())
             self._params = jax.device_put(stacked, members_sh)
-            self._fn = jax.jit(
-                efn,
-                in_shardings=(members_sh, rep),
-                out_shardings=(rep, rep),
-            )
+            w_sh = jax.device_put(weights, members_sh)
+
+            def local(params, w, x):
+                p, s = jax.vmap(lambda pr: member(pr, x))(params)
+                w = w.reshape((-1,) + (1,) * (p.ndim - 1))
+                mean = jax.lax.psum(jnp.sum(w * p, axis=0), "data")
+                var = jax.lax.psum(
+                    jnp.sum(w * (s + jnp.square(p - mean)), axis=0), "data")
+                return recal(mean, var)
+
+            smapped = shard_map(
+                local, mesh=mesh, in_specs=(P("data"), P("data"), P()),
+                out_specs=(P(), P()), check_vma=False)
+            self._fn = jax.jit(lambda params, x: smapped(params, w_sh, x))
 
 
 def export_bundle(

@@ -9,8 +9,8 @@ blends the per-tile moment pairs:
 
 - the tile grid is STATIC for a given (volume shape, config, overlap) —
   every tile runs through the same compiled program at the same batch
-  shape (the TPU-friendly formulation: one XLA executable, MXU-sized
-  batches of tiles, no dynamic shapes);
+  shape (one XLA executable, fixed-size batches of tiles, no dynamic
+  shapes);
 - blending is a per-voxel weighted average with either uniform or
   separable-Gaussian tile weights (the Gaussian down-weights tile borders,
   where VALID-padding context is thinnest);

@@ -10,7 +10,7 @@ Replaces the reference's ``main_function(Training=True)`` body
 - loss/nll/kl/accuracy computed on device inside the step — the reference
   pulls logits to host NumPy every step (SURVEY §3.1); host-side metrics
   (per-structure dice, SciPy Hausdorff) run only on validation epochs;
-- per-epoch Orbax checkpointing in the reference's ``epoch_{N}`` scheme,
+- per-epoch npz checkpointing in the reference's ``epoch_{N}`` scheme,
   resume via ``continue_training`` (`Hippocampus.py:549-555`);
 - the artifact set: curve PNGs, history pickle, Related_hyperparameters.txt
   (`Hippocampus.py:744-837`).

@@ -2,9 +2,30 @@
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
+
+# the checkout: the directory that holds the package
+CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def use_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at one fixed directory and
+    return it. ``JAX_COMPILATION_CACHE_DIR``, when set, wins and nothing
+    else is set; otherwise the cache is ``<checkout>/.jax_cache`` (listed in
+    .gitignore). The path is part of the cache's key, so it must not move
+    between runs. Called by ``cli.main``, ``bench.main``, ``chip_smoke.py``
+    and the test configuration."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if path:
+        return path
+    path = os.path.join(CHECKOUT, ".jax_cache")
+    os.environ["JAX_COMPILATION_CACHE_DIR"] = path
+    if "jax" in sys.modules:  # jax read the variable at import time
+        sys.modules["jax"].config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def update_progress(progress: float, bar_length: int = 20) -> None:

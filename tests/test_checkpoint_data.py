@@ -1,4 +1,5 @@
-"""Checkpoint round-trips (Orbax + Keras-H5 layout) and data-pipeline tests."""
+"""Checkpoint round-trips (npz TrainState + Keras-H5 layout) and
+data-pipeline tests."""
 
 import dataclasses
 import os
@@ -144,6 +145,9 @@ def test_npz_roundtrip(tmp_path):
 
 
 def test_orbax_state_roundtrip(tmp_path):
+    """The npz TrainState writer (it replaced Orbax under the same name):
+    params, Adam moments and step come back exactly, with the template's
+    dtypes, and a template of another structure is refused."""
     params = _params()
     state, _ = create_train_state(params, HIPPOCAMPUS.train)
     root = str(tmp_path / "ckpts")
@@ -152,6 +156,11 @@ def test_orbax_state_roundtrip(tmp_path):
     restored = ckpt.restore_state(root, 3, state)
     _assert_params_equal(state.params, restored.params)
     assert int(restored.step) == int(state.step)
+    for a, b in zip(jax.tree_util.tree_leaves(restored),
+                    jax.tree_util.tree_leaves(state)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+    with pytest.raises(ValueError, match="saved leaves"):
+        ckpt.restore_state(root, 3, state.params)
 
 
 def test_latest_epoch_none(tmp_path):

@@ -115,7 +115,7 @@ def test_forward_and_grad_equality(cfgname):
 def test_flops_shape_tap_under_fold(family):
     """flops' per-layer shape recording relies on the forward tap firing
     for EVERY named conv layer; the fold path must tap them too (a missing
-    `up{j}_conv2` tap in 3-D fold mode broke MFU reporting on TPU)."""
+    `up{j}_conv2` tap in 3-D fold mode once broke MFU reporting)."""
     from supernet_tpu import flops as F
 
     cfg = HIPPOCAMPUS.model

@@ -60,10 +60,9 @@ def test_extract_patches_matches_manual():
 
 @pytest.mark.parametrize("k,stride", [(2, 1), (3, 1), (3, 2), (5, 2)])
 def test_winsum_shift_matches_conv(k, stride):
-    """The separable shift-add window sum (SUPERNET_WINSUM=shift, pure VPU)
-    equals the ones-kernel conv lowering in value AND in jit(grad) — the
-    FGSM/PGD contract. The round-4 3-D trace measured the conv form at 14%
-    of the whole train step (docs/PERFORMANCE.md)."""
+    """The separable shift-add window sum (SUPERNET_WINSUM=shift, slice
+    adds) equals the ones-kernel conv lowering in value AND in jit(grad) —
+    the FGSM/PGD contract."""
     x = jnp.asarray(_rand(2, 13, 11, 5))
     prev = moments.get_winsum()
     try:
@@ -105,8 +104,7 @@ def test_sw_scale_and_chansum_modes_agree():
     and the channel sum (SUPERNET_CHANSUM) equal the broadcast-mul /
     lane-reduce defaults in value AND jit(grad) — in f32 they are
     bit-exact (a size-1 contraction and a ones mat-vec do the same
-    arithmetic). Measured neutral on TPU in both ranks (docs/PERFORMANCE.md
-    dead-ends table), kept A/B-able."""
+    arithmetic); kept A/B-able."""
     from supernet_tpu.ops import moments3d
 
     mu = jnp.asarray(_rand(2, 9, 9, 4))

@@ -73,7 +73,7 @@ def test_vconv3d_input_closed_form():
 
 
 def test_vconv3d_k1_einsum_matches_conv_form():
-    """The 1x1x1 einsum fast path (MXU-friendly, GSPMD-partitionable under
+    """The 1x1x1 einsum fast path (no C_out-starved conv, GSPMD-partitionable under
     the ensemble member vmap) == the generic conv-form lowering."""
     cin, cout, d = 3, 4, 5
     x = _rand(2, d, d, d, cin)

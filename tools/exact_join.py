@@ -15,8 +15,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from supernet_tpu.hlo_profile import (  # noqa: E402,F401
     build_step,
     classify,
+    join_events,
     layer_of,
     main,
+    module_name,
     parse_hlo,
     run,
 )

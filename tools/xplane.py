@@ -11,7 +11,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from supernet_tpu.xplane import (  # noqa: E402,F401
     Event,
     fields,
+    is_gpu_device_plane,
     main,
+    newest_xplane,
     op_buckets,
     parse_xspace,
 )
